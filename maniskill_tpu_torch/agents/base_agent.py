@@ -7,6 +7,7 @@ ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import TYPE_CHECKING, Dict, Optional
 
 import numpy as np
@@ -20,11 +21,21 @@ if TYPE_CHECKING:
     from ..envs.scene import ManiSkillScene
 
 
+@dataclasses.dataclass
+class Keyframe:
+    """Named rest configuration."""
+
+    pose: np.ndarray  # (7,) root pose
+    qpos: Optional[np.ndarray] = None
+    qvel: Optional[np.ndarray] = None
+
+
 class BaseAgent:
     uid: str = "base_agent"
     urdf_path: Optional[str] = None
     fix_root_link: bool = True
     disable_self_collisions: bool = False
+    keyframes: Dict[str, Keyframe] = {}
 
     def __init__(
         self,
@@ -70,11 +81,21 @@ class BaseAgent:
     def supported_control_modes(self):
         return list(self._controller_configs.keys())
 
+    def _after_init(self):
+        pass
+
     def _setup_controllers(self):
         """Instantiate the active controller (called after scene.finalize)."""
         self.set_control_mode(self._requested_control_mode or self.supported_control_modes[0])
+        self._after_init()
 
     def set_control_mode(self, control_mode: str):
+        if control_mode not in self._controller_configs:
+            # never fall back to another mode
+            raise NotImplementedError(
+                f"control mode {control_mode!r} of {self.uid} is not ported; "
+                f"ported: {self.supported_control_modes}"
+            )
         configs = self._controller_configs[control_mode]
         balance_passive_force = True
         if isinstance(configs, dict):
@@ -121,9 +142,24 @@ class BaseAgent:
             obs["controller"] = ctrl_state
         return obs
 
+    def reset(self, init_qpos=None):
+        """Set joint positions (masked by the reset mask), zero velocities and
+        reset the controller targets."""
+        if init_qpos is not None:
+            self.robot.set_qpos(init_qpos)
+        self.robot.set_qvel(torch.zeros(self.scene.num_envs, self.robot.dof, device=self.scene.device))
+        self.controller.reset()
+
     def get_state(self) -> Dict:
         return dict(robot=self.robot.get_state(), controller=self.controller.get_state())
 
     def set_state(self, state: Dict):
         self.robot.set_state(state["robot"])
         self.controller.set_state(state.get("controller", {}))
+
+    # -- task helpers (overridden by robots) -----------------------------
+    def is_grasping(self, object=None):
+        raise NotImplementedError
+
+    def is_static(self, threshold: float = 0.2):
+        return torch.amax(torch.abs(self.robot.qvel), 1) <= threshold

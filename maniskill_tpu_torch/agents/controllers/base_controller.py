@@ -57,11 +57,11 @@ class BaseController:
     def _initialize_action_space(self):
         raise NotImplementedError
 
-    def _clip_and_scale_action(self, action: torch.Tensor, low, high) -> torch.Tensor:
-        """Map a normalized [-1, 1] action to [low, high]."""
+    def _clip_and_scale_action(self, action: torch.Tensor, low: torch.Tensor,
+                               high: torch.Tensor) -> torch.Tensor:
+        """Map a normalized [-1, 1] action to [low, high] (tensors on the
+        action's device)."""
         action = torch.clamp(action, -1.0, 1.0)
-        low = torch.as_tensor(np.array(low, np.float32), device=action.device)
-        high = torch.as_tensor(np.array(high, np.float32), device=action.device)
         return 0.5 * (high + low) + 0.5 * (high - low) * action
 
     # -- lifecycle -------------------------------------------------------

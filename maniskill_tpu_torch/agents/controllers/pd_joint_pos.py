@@ -1,15 +1,14 @@
-"""PD joint position controller (counterpart of
-maniskill_tpu/agents/controllers/pd_joint_pos.py; the mimic variant is not
-ported yet).
+"""PD joint position controllers (counterpart of
+maniskill_tpu/agents/controllers/pd_joint_pos.py).
 
-Delta/absolute targets and ``use_target`` (integrate deltas on the previous
-target). Targets are stored in Data.drive_target, so they persist across
-steps and are partial-reset-masked automatically.
+Delta/absolute targets, ``use_target`` (integrate deltas on the previous
+target) and the mimic-joint variant. Targets are stored in Data.drive_target,
+so they persist across steps and are partial-reset-masked automatically.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -50,15 +49,22 @@ class PDJointPosController(BaseController):
             # absolute mode: limits come from the joint limits
             lims = self._joint_limits()
             lo, hi = lims[:, 0], lims[:, 1]
-        self._lo, self._hi = np.asarray(lo), np.asarray(hi)
         lims = self._joint_limits()
         dev = self.scene.device
         self._lim_lo = torch.as_tensor(lims[:, 0], device=dev)
         self._lim_hi = torch.as_tensor(lims[:, 1], device=dev)
+        self._set_action_bounds(lo, hi)
+
+    def _set_action_bounds(self, lo, hi):
+        """Action limits: host copies for the space, device copies for the
+        per-step scaling."""
+        self._lo, self._hi = np.array(lo, np.float32), np.array(hi, np.float32)
+        self._lo_t = torch.as_tensor(self._lo, device=self.scene.device)
+        self._hi_t = torch.as_tensor(self._hi, device=self.scene.device)
         if self.config.normalize_action:
-            self._action_space = gym_utils.Box(-1.0, 1.0, (n,), np.float32)
+            self._action_space = gym_utils.Box(-1.0, 1.0, self._lo.shape, np.float32)
         else:
-            self._action_space = gym_utils.Box(lo, hi, dtype=np.float32)
+            self._action_space = gym_utils.Box(self._lo, self._hi, dtype=np.float32)
 
     def _joint_limits(self) -> np.ndarray:
         src = self.scene.model.host_dof_limit
@@ -92,7 +98,7 @@ class PDJointPosController(BaseController):
     def set_action(self, action: torch.Tensor):
         action = action.to(torch.float32)
         if self.config.normalize_action:
-            action = self._clip_and_scale_action(action, self._lo, self._hi)
+            action = self._clip_and_scale_action(action, self._lo_t, self._hi_t)
         d = self.scene.data
         if self.config.use_delta:
             base = self._target_qpos() if self.config.use_target else d.qpos[:, self.q_adrs]
@@ -123,3 +129,56 @@ class PDJointPosController(BaseController):
     def set_state(self, state):
         if "target_qpos" in state:
             self._set_target(self.scene.to_batch(state["target_qpos"], len(self.joints)))
+
+
+@dataclasses.dataclass
+class PDJointPosMimicControllerConfig(PDJointPosControllerConfig):
+    """One commanded value drives several mimicking joints. ``mimic`` maps
+    follower joint -> dict(joint=leader, multiplier, offset); by default every
+    joint mimics the first 1:1 (two-finger grippers)."""
+
+    mimic: Optional[dict] = None
+
+    @property
+    def controller_cls(self):
+        return PDJointPosMimicController
+
+
+class PDJointPosMimicController(PDJointPosController):
+    def _initialize_action_space(self):
+        # the action holds the leader (non-mimicking) joints only
+        super()._initialize_action_space()
+        names = list(self.config.joint_names)
+        mimic = self.config.mimic or {
+            n: dict(joint=names[0], multiplier=1.0, offset=0.0) for n in names[1:]
+        }
+        leaders = [n for n in names if n not in mimic]
+        lidx = np.zeros(len(names), np.int64)
+        mult = np.ones(len(names), np.float32)
+        off = np.zeros(len(names), np.float32)
+        for i, n in enumerate(names):
+            spec = mimic.get(n)
+            lidx[i] = leaders.index(spec["joint"] if spec else n)
+            if spec:
+                mult[i] = spec.get("multiplier", 1.0)
+                off[i] = spec.get("offset", 0.0)
+        keep = [names.index(n) for n in leaders]
+        dev = self.scene.device
+        self._lidx = torch.as_tensor(lidx, device=dev)
+        self._mult = torch.as_tensor(mult, device=dev)
+        self._off = torch.as_tensor(off, device=dev)
+        self._leader_q = self.q_adrs[keep]
+        self._leader_dof = self.dof_adrs[keep]
+        self._set_action_bounds(self._lo[keep], self._hi[keep])
+
+    def set_action(self, action: torch.Tensor):
+        action = action.to(torch.float32)
+        if self.config.normalize_action:
+            action = self._clip_and_scale_action(action, self._lo_t, self._hi_t)
+        d = self.scene.data
+        leader = action.expand(self.scene.num_envs, self._lo.shape[0])
+        if self.config.use_delta:
+            base = d.drive_target[:, self._leader_dof] if self.config.use_target else d.qpos[:, self._leader_q]
+            leader = base + leader
+        target = leader[:, self._lidx] * self._mult + self._off
+        self._set_target(torch.minimum(torch.maximum(target, self._lim_lo), self._lim_hi))

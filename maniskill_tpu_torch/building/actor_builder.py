@@ -2,8 +2,9 @@
 (counterpart of maniskill_tpu/building/actor_builder.py).
 
 One call to ``build*`` creates ONE body in the shared kinematic forest; the
-env axis is a batch dim, so nothing is replicated. Primitive shapes only: the
-mesh, convex-hull and textured adders are not ported yet.
+env axis is a batch dim, so nothing is replicated. Primitive shapes plus
+mesh and textured visuals; the convex-hull collision adders are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..physics.types import (
     FIXED,
     FREE,
     KINEMATIC,
+    MESH,
     PLANE,
     SPHERE,
     STATIC,
@@ -95,6 +97,26 @@ class ActorBuilder:
 
     def add_plane_visual(self, pose=None, scale=(1, 1, 1), material=None, color=None):
         return self._add("v", PLANE, scale, pose, 0.0, 0.0, _color(material, color))
+
+    def add_visual_from_mesh(self, verts, faces, pose=None, color=None,
+                             material=None, face_colors=None):
+        """A triangle-mesh visual; ``face_colors`` (F, 3) carries baked
+        texture colours (render/textures.py)."""
+        self._add("v", MESH, np.ones(3), pose, 0.0, 0.0, _color(material, color))
+        self.visuals[-1].update(
+            mesh=(np.asarray(verts, np.float32), np.asarray(faces, np.int32)),
+            face_colors=None if face_colors is None else np.asarray(face_colors, np.float32),
+        )
+        return self
+
+    def add_textured_visual(self, image, half_x, half_y, pose=None, res=12,
+                            uv_tiles: float = 1.0):
+        """Textured z-up quad (table tops, floors): a tessellated grid with
+        per-face colours baked from ``image``."""
+        from ..render.textures import textured_quad_grid
+
+        v, f, fc = textured_quad_grid(half_x, half_y, image, res=res, uv_tiles=uv_tiles)
+        return self.add_visual_from_mesh(v, f, pose=pose, face_colors=fc)
 
     def set_initial_pose(self, pose):
         self.initial_pose = _pose7(pose)
@@ -204,6 +226,8 @@ class ActorBuilder:
                 conaffinity=0,
                 color=v["color"] or (0.5, 0.5, 0.5, 1.0),
                 name=f"{name}_vis_{len(mb.geoms)}",
+                mesh=v.get("mesh"),
+                face_colors=v.get("face_colors"),
             )
         actor = Actor(
             self.scene,

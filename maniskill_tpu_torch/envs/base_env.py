@@ -135,9 +135,10 @@ class BaseEnv:
         )
         self.scene.sim_steps_per_control = self.sim_config.sim_steps_per_control
         self.scene.default_restitution = self.sim_config.default_materials_config.restitution
-        self._load_agent()
-        self._load_scene()
-        self._load_lighting()
+        options: dict = {}
+        self._load_agent(options)
+        self._load_scene(options)
+        self._load_lighting(options)
         model = self.scene.finalize()
         self.scene.model = model.replace(
             contact_slop=sc.contact_slop,
@@ -156,28 +157,34 @@ class BaseEnv:
     def _make_initial_data(self) -> phys.Data:
         model = self.scene.model
         qpos0 = phys.default_qpos(model)
+        data = phys.make_data(model, self.num_envs, qpos0)
         for actor in self.scene.actors.values():
             if actor.is_static or actor.initial_pose is None:
                 continue
             if actor._mocap_idx is not None:
-                raise NotImplementedError("dof-less marker actors are not ported yet")
+                # dof-less marker: its pose lives in Data.mocap_pose
+                data.mocap_pose[:, actor._mocap_idx] = torch.as_tensor(
+                    actor.initial_pose, device=self.device
+                )
+                continue
             qa = int(model.body_q_adr[actor.body_id])
-            qpos0[qa : qa + 7] = actor.initial_pose
-        return phys.make_data(model, self.num_envs, qpos0)
+            data.qpos[:, qa : qa + 7] = torch.as_tensor(actor.initial_pose, device=self.device)
+        return data
 
-    def _load_agent(self):
+    def _load_agent(self, options: dict, initial_agent_poses=None):
         uid = self.robot_uids
         if uid is None:
             raise NotImplementedError("robot-free envs are not ported yet")
         if isinstance(uid, (list, tuple)):
             raise NotImplementedError("multi-agent envs are not ported yet")
         cls = uid if isinstance(uid, type) else get_agent_class(uid)
-        self.agent = cls(self.scene, control_mode=self._control_mode)
+        self.agent = cls(self.scene, control_mode=self._control_mode,
+                         initial_pose=initial_agent_poses)
 
-    def _load_scene(self):
+    def _load_scene(self, options: dict):
         pass
 
-    def _load_lighting(self):
+    def _load_lighting(self, options: dict):
         self.scene.set_ambient_light([0.3, 0.3, 0.3])
         self.scene.add_directional_light([1, 1, -1], [1, 1, 1])
         self.scene.add_directional_light([0, 0, -1], [1, 1, 1])

@@ -7,15 +7,17 @@ the current batched ``Data`` on the scene's ``device``. Struct setters write
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..physics import ModelBuilder
+from ..physics.plan import model_plan
 from ..physics.types import STATIC, Model
 from ..structs.actor import Actor
 from ..structs.articulation import Articulation
+from ..structs.link import Link
 
 
 class ManiSkillScene:
@@ -156,6 +158,54 @@ class ManiSkillScene:
             drive_kd=put(m.drive_kd, damping),
             drive_force_limit=put(m.drive_force_limit, force_limit),
         )
+
+    # -- contact queries -------------------------------------------------
+    def _body_ids_of(self, obj) -> List[int]:
+        if isinstance(obj, (Actor, Link)):
+            return [obj.body_id]
+        if isinstance(obj, Articulation):
+            return [link.body_id for link in obj.links]
+        raise TypeError(type(obj))
+
+    def _contact_sign(self, key, sign_fn) -> Optional[torch.Tensor]:
+        """(C,) per-candidate sign of a force query, kept in the model's
+        device plan; None if no candidate contributes."""
+        return model_plan(self.model).force_sign(key, self.data.contact, sign_fn)
+
+    def _signed_force(self, sign: Optional[torch.Tensor]) -> torch.Tensor:
+        if sign is None:
+            return torch.zeros(self.num_envs, 3, device=self.device)
+        imp = self.data.contact.impulse * sign[None, :, None]
+        return torch.sum(imp, 1) / self.model.timestep
+
+    def net_contact_forces_for_bodies(self, body_ids: Sequence[int]) -> torch.Tensor:
+        """(B, 3) net contact force on the given bodies."""
+        c = self.data.contact
+        if c is None or len(c.geom1) == 0:
+            return torch.zeros(self.num_envs, 3, device=self.device)
+        ids = frozenset(int(i) for i in body_ids)
+
+        def sign_fn(b1, b2):
+            return (np.isin(b2, list(ids)).astype(np.float32)
+                    - np.isin(b1, list(ids)).astype(np.float32))
+
+        return self._signed_force(self._contact_sign(("net", ids), sign_fn))
+
+    def get_pairwise_contact_forces(self, obj1, obj2) -> torch.Tensor:
+        """Force exerted by obj1 on obj2, (B, 3)."""
+        c = self.data.contact
+        if c is None or len(c.geom1) == 0:
+            return torch.zeros(self.num_envs, 3, device=self.device)
+        a = frozenset(self._body_ids_of(obj1))
+        b = frozenset(self._body_ids_of(obj2))
+
+        def sign_fn(b1, b2):
+            in_a1, in_b1 = np.isin(b1, list(a)), np.isin(b1, list(b))
+            in_a2, in_b2 = np.isin(b2, list(a)), np.isin(b2, list(b))
+            # the impulse acts on body2 (obj2); the reverse order is the reaction
+            return np.where(in_a1 & in_b2, 1.0, np.where(in_b1 & in_a2, -1.0, 0.0)).astype(np.float32)
+
+        return self._signed_force(self._contact_sign(("pair", a, b), sign_fn))
 
     # -- sim state registry ----------------------------------------------
     def get_sim_state(self) -> Dict:

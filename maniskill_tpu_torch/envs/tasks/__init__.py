@@ -1,2 +1,3 @@
+from . import tabletop
 from . import control
 from . import benchmark

@@ -83,7 +83,7 @@ class CartpoleEnv(BaseEnv):
         pose = look_at(eye=[0, -4, 1], target=[0, 0, 1])
         return CameraConfig("render_camera", pose, 512, 512, 1, 0.01, 100)
 
-    def _load_scene(self):
+    def _load_scene(self, options: dict):
         # background wall (visual only)
         wall = self.scene.create_actor_builder()
         wall.add_box_visual(half_size=(1e-3, 20, 10), color=(0.3, 0.3, 0.3, 1))

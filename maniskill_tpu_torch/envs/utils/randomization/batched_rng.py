@@ -8,6 +8,7 @@ copy per draw. The numbers differ from the JAX package's for the same seed.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -42,3 +43,15 @@ class BatchedRNG:
 
     def normal(self, loc=0.0, scale=1.0, size=()) -> torch.Tensor:
         return loc + scale * self._draw(torch.randn, size)
+
+    def quaternions(self, lock_x=False, lock_y=False, lock_z=False) -> torch.Tensor:
+        """(B, 4) random unit wxyz quaternions; locking x and y gives a
+        uniform yaw about z."""
+        from ....utils.geometry import rotation_conversions as rc
+
+        if lock_x and lock_y and not lock_z:
+            ang = self.uniform(0.0, 2 * math.pi)
+            zeros = torch.zeros_like(ang)
+            return rc.axis_angle_to_quaternion(torch.stack([zeros, zeros, ang], -1))
+        q = self.normal(size=(4,))
+        return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

@@ -14,31 +14,12 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from ..utils.geometry import rotation_conversions as rc
-from .kinematics import _gb, dof_frames_from, fk_plan, forward_kinematics_raw
-from .types import JOINT_NV, KINEMATIC, Data, Model
-
-_CRB_CACHE: dict = {}
-
-
-def _crb_masks(model: Model, device):
-    """Static (nv, nv) lower/strict masks: DL[d,e]=1 iff dof d lies on the
-    chain from world to body(e) and e >= d (dof order = depth order)."""
-    key = (model.ancestor_mask.tobytes(), model.dof_body.tobytes(), str(device))
-    out = _CRB_CACHE.get(key)
-    if out is None:
-        anc = np.asarray(model.ancestor_mask)
-        on_chain = anc[np.asarray(model.dof_body), :].T  # (nv_d, nv_e)
-        order = np.arange(model.nv)
-        dl = on_chain * (order[None, :] >= order[:, None])
-        dls = on_chain * (order[None, :] > order[:, None])
-        out = tuple(torch.as_tensor(m, dtype=torch.float32, device=device) for m in (dl, dls))
-        _CRB_CACHE[key] = out
-    return out
-
+from .kinematics import _gb, dof_frames_from, forward_kinematics_raw
+from .plan import model_plan
+from .types import Data, Model
 
 def _quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) -> (..., 3, 3) in the reference CRB pass's own arithmetic
@@ -79,7 +60,7 @@ def mass_matrix_and_bias_kin(model: Model, data: Data, kin) -> Tuple[torch.Tenso
     reference's mass_matrix_and_bias_cf). M qacc = tau - qfrc_bias.
     """
     xpos, xquat, v, w = kin
-    plan = fk_plan(model, xpos.device)
+    plan = model_plan(model)
     dyn = plan.dyn  # (nb,)
     m = model.body_mass * dyn  # (nb,) or (B, nb)
 
@@ -150,8 +131,7 @@ def mass_matrix_and_bias_kin(model: Model, data: Data, kin) -> Tuple[torch.Tenso
     L6 = torch.cat([a_d * ir, h * ir - a_d * (1.0 - ir)], -1)  # (B, nv, 6)
     R6 = torch.cat([X, Y], -1)
     M_low = torch.einsum("bdk,bek->bde", L6, R6)
-    DL, DLs = _crb_masks(model, xpos.device)
-    M = M_low * DL + (M_low * DLs).transpose(1, 2)
+    M = M_low * plan.crb_lower + (M_low * plan.crb_strict).transpose(1, 2)
 
     irf = ir[..., 0]
     qfrc_bias = irf * (_dot(a_d, Tc) - _dot(h, Fc)) + (1.0 - irf) * _dot(a_d, Fc)
@@ -168,7 +148,7 @@ def joint_positions(model: Model, data: Data) -> torch.Tensor:
     """(B, nv) vector of per-dof positions (free-joint dofs read as 0)."""
     if model.nv == 0:
         return data.qpos.new_zeros(data.batch_size, 0)
-    plan = fk_plan(model, data.qpos.device)
+    plan = model_plan(model)
     return data.qpos[:, plan.q_of_dof] * plan.q_mask
 
 
@@ -179,15 +159,6 @@ def actuation(model: Model, data: Data) -> torch.Tensor:
         data.drive_vel_target - data.qvel
     )
     return torch.clamp(tau, -model.drive_force_limit, model.drive_force_limit)
-
-
-def _kinematic_dof_mask(model: Model, device) -> torch.Tensor:
-    mask = np.zeros(model.nv, np.float32)
-    for b in range(model.nbody):
-        if model.body_type[b] == KINEMATIC:
-            va = int(model.body_dof_adr[b])
-            mask[va : va + JOINT_NV[int(model.body_jnt_type[b])]] = 1.0
-    return torch.as_tensor(mask, device=device)
 
 
 def smooth_dynamics(model: Model, data: Data, kin=None):
@@ -213,7 +184,7 @@ def smooth_dynamics(model: Model, data: Data, kin=None):
     )
     # kinematic FREE bodies own dofs the dynamics must not integrate; they
     # carry zero rows in M, so pin their diagonal to keep M_imp SPD
-    kin_mask = _kinematic_dof_mask(model, M.device)
+    kin_mask = model_plan(model).kinematic_dof_mask
     diag = diag + kin_mask
     M_imp = M + torch.diag_embed(diag.expand(data.batch_size, model.nv))
     tau = tau - model.dof_damping * data.qvel  # explicit dof damping
@@ -230,8 +201,12 @@ def spd_inverse(M: torch.Tensor) -> torch.Tensor:
     vs finger dofs ~1e-5), so f32 Cholesky cancellation noise can exceed the
     small pivots; the scaled system's condition is only the coupling
     condition. ``cholesky_ex`` keeps the device from synchronizing on an error
-    check; a non-SPD batch entry shows up as NaN downstream.
+    check (a non-SPD batch entry shows up as NaN downstream), and the inverse
+    is formed as L^-T L^-1 with a triangular solve, because
+    ``torch.cholesky_inverse`` synchronizes the stream on CUDA.
     """
     s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1), min=1e-12))
     L, _ = torch.linalg.cholesky_ex(M * s[..., :, None] * s[..., None, :])
-    return torch.cholesky_inverse(L) * s[..., :, None] * s[..., None, :]
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand(L.shape)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return (Linv.mT @ Linv) * s[..., :, None] * s[..., None, :]

@@ -15,108 +15,13 @@ Conventions:
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
-import numpy as np
 import torch
 
 from ..utils.geometry import rotation_conversions as rc
-from .types import FIXED, FREE, HINGE, SLIDE, Data, Model
-
-_PLAN_CACHE: Dict[tuple, "_FKPlan"] = {}
-
-
-class _FKPlan:
-    """Static index tables for level-scheduled kinematics, on one device."""
-
-    def __init__(self, model: Model, device: torch.device):
-        def t(a, dtype=torch.int64):
-            return torch.as_tensor(np.array(a), dtype=dtype, device=device)
-
-        nb = model.nbody
-        jt = np.asarray(model.body_jnt_type)
-        parent = np.asarray(model.body_parent)
-        q_adr = np.asarray(model.body_q_adr)
-        dof_adr = np.asarray(model.body_dof_adr)
-
-        free = np.nonzero(jt == FREE)[0]
-        self.n_free = len(free)
-        self.free = t(free)
-        self.free_q_idx = t(q_adr[free][:, None] + np.arange(7)[None])
-        self.free_v_idx = t(dof_adr[free][:, None] + np.arange(6)[None])
-
-        # tree depth (free bodies are roots: their pose ignores the parent)
-        depth = np.zeros(nb, np.int64)
-        for b in range(1, nb):
-            depth[b] = 0 if jt[b] == FREE else depth[parent[b]] + 1
-        self.levels = []
-        maxd = int(depth.max()) if nb > 1 else 0
-        for d in range(1, maxd + 1):
-            bl = np.nonzero((depth == d) & (jt != FREE))[0]
-            if len(bl) == 0:
-                continue
-            has_q = (jt[bl] == HINGE) | (jt[bl] == SLIDE)
-            self.levels.append(dict(
-                bodies=t(bl),
-                parents=t(parent[bl]),
-                is_hinge=t(jt[bl] == HINGE, torch.bool)[None, :, None],
-                is_slide=t(jt[bl] == SLIDE, torch.bool)[None, :, None],
-                has_q=t(has_q, torch.float32),
-                # FIXED joints gather slot 0 and mask to zero
-                q_idx=t(np.where(jt[bl] == FIXED, 0, q_adr[bl])),
-                v_idx=t(np.where(jt[bl] == FIXED, 0, dof_adr[bl])),
-            ))
-
-        # per-dof tables (dof_frames / joint_positions)
-        nv = model.nv
-        dof_body = np.asarray(model.dof_body)
-        is_free_dof = np.zeros(nv, bool)
-        const_axis = np.zeros((nv, 3), np.float32)
-        q_of_dof = np.zeros(nv, np.int64)
-        q_mask = np.zeros(nv, np.float32)
-        for b in range(nb):
-            va = int(dof_adr[b])
-            if jt[b] == FREE:
-                for i in range(6):
-                    is_free_dof[va + i] = True
-                    const_axis[va + i, i % 3] = 1.0
-            elif jt[b] in (HINGE, SLIDE):
-                q_of_dof[va] = q_adr[b]
-                q_mask[va] = 1.0
-        self.dof_body = t(dof_body)
-        self.is_free_dof = t(is_free_dof, torch.bool)[None, :, None]
-        self.const_axis = t(const_axis, torch.float32)[None]
-        self.q_of_dof = t(q_of_dof)
-        self.q_mask = t(q_mask, torch.float32)
-        self.dof_is_rot = t(np.asarray(model.dof_is_rot), torch.bool)
-        self.ancestor = t(np.asarray(model.ancestor_mask), torch.float32)
-        self.dyn = t(np.asarray(model.body_type) == 0, torch.float32)
-        self.geom_body = t(np.asarray(model.geom_body))
-
-        # 1-dof joints for integrate_qpos
-        one = np.nonzero((jt == HINGE) | (jt == SLIDE))[0]
-        self.one_q = t(q_adr[one])
-        self.one_v = t(dof_adr[one])
-
-
-def fk_plan(model: Model, device=None) -> _FKPlan:
-    device = torch.device(device) if device is not None else model.device
-    key = (
-        model.body_parent.tobytes(),
-        model.body_jnt_type.tobytes(),
-        model.body_q_adr.tobytes(),
-        model.body_dof_adr.tobytes(),
-        model.dof_body.tobytes(),
-        model.body_type.tobytes(),
-        model.geom_body.tobytes(),
-        str(device),
-    )
-    plan = _PLAN_CACHE.get(key)
-    if plan is None:
-        plan = _FKPlan(model, device)
-        _PLAN_CACHE[key] = plan
-    return plan
-
+from .plan import model_plan
+from .types import Data, Model
 
 def _gb(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather model parameters on the body/geom axis, tolerating an optional
@@ -139,7 +44,7 @@ def forward_kinematics_raw(model: Model, qpos: torch.Tensor, qvel: torch.Tensor)
     v (B,nb,3), w (B,nb,3)) in world frame."""
     B = qpos.shape[0]
     nb = model.nbody
-    plan = fk_plan(model, qpos.device)
+    plan = model_plan(model)
     xpos = qpos.new_zeros(B, nb, 3)
     xquat = qpos.new_zeros(B, nb, 4)
     xquat[..., 0] = 1.0
@@ -182,7 +87,7 @@ def forward_kinematics(model: Model, data: Data) -> Data:
     xpos, xquat, v, w = forward_kinematics_raw(model, data.qpos, data.qvel)
     if model.mocap_bodies is not None and data.mocap_pose is not None:
         # dof-less marker bodies: splice their per-env poses in
-        mb = torch.as_tensor(np.asarray(model.mocap_bodies, np.int64), device=xpos.device)
+        mb = model_plan(model).mocap
         xpos[:, mb] = data.mocap_pose[..., :3]
         xquat[:, mb] = data.mocap_pose[..., 3:7]
     return data.replace(xpos=xpos, xquat=xquat, cvel=torch.cat([v, w], -1))
@@ -192,7 +97,7 @@ def dof_frames_from(model: Model, xpos: torch.Tensor, xquat: torch.Tensor):
     """Per-dof world axis and anchor: (B, nv, 3) each. Rotational dofs rotate
     about (axis, anchor); translational dofs translate along axis. FREE
     joints: 3 world-axis translations + 3 rotations about the body origin."""
-    plan = fk_plan(model, xpos.device)
+    plan = model_plan(model)
     db = plan.dof_body
     anchor = xpos[:, db]
     axis_l = _gb(model.jnt_axis, db).expand(anchor.shape)
@@ -211,7 +116,7 @@ def body_com(model: Model, data: Data) -> torch.Tensor:
 def body_jacobians(model: Model, data: Data, dof_axis: torch.Tensor, dof_anchor: torch.Tensor):
     """COM-point translational + rotational Jacobians for all bodies:
     (jac_lin (B, nbody, nv, 3), jac_rot (B, nbody, nv, 3))."""
-    plan = fk_plan(model, data.qpos.device)
+    plan = model_plan(model)
     com = body_com(model, data)
     is_rot = plan.dof_is_rot[None, None, :, None]
     rel = com[:, :, None, :] - dof_anchor[:, None, :, :]  # (B, nb, nv, 3)
@@ -224,7 +129,7 @@ def body_jacobians(model: Model, data: Data, dof_axis: torch.Tensor, dof_anchor:
 
 def geom_poses_from(model: Model, xpos: torch.Tensor, xquat: torch.Tensor):
     """World poses of all geoms: (B, ngeom, 3), (B, ngeom, 4)."""
-    gb = fk_plan(model, xpos.device).geom_body
+    gb = model_plan(model).geom_body
     bp, bq = xpos[:, gb], xquat[:, gb]
     pos = bp + rc.quaternion_apply(bq, model.geom_pos)
     quat = rc.quaternion_multiply(bq, model.geom_quat.expand(bq.shape))

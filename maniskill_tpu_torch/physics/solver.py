@@ -12,42 +12,31 @@ Constraint rows:
 
 Unlike the reference, the iteration matvecs stay f32 (the reference feeds
 the TPU's matrix unit bf16 copies of J and W), and top-K compaction gathers
-with ``torch.topk`` + ``torch.gather`` instead of a one-hot contraction.
+with a stable descending sort + ``torch.gather`` instead of a one-hot
+contraction.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
+from ..utils.common import top_k_stable
 from ..utils.geometry import rotation_conversions as rc
 from .dynamics import joint_positions
-from .kinematics import dof_frames, dof_frames_from, fk_plan
+from .kinematics import dof_frames, dof_frames_from
+from .plan import model_plan
 from .types import Contact, Data, Model
 
 
 def _tangent_basis(n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two unit tangents orthogonal to n (branch-free)."""
-    a = torch.where(
-        torch.abs(n[..., 0:1]) < 0.9,
-        n.new_tensor([1.0, 0, 0]).expand(n.shape),
-        n.new_tensor([0, 1.0, 0]).expand(n.shape),
-    )
+    a = torch.zeros_like(n)
+    a[..., 0] = 1.0
+    a = torch.where(torch.abs(n[..., 0:1]) < 0.9, a, a.roll(1, -1))
     t1 = rc.cross(n, a)
     t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1, keepdim=True), min=1e-9)
     return t1, rc.cross(n, t1)
-
-
-def _contact_weights(model: Model, contact: Contact, device) -> torch.Tensor:
-    """(C, nv) signed ancestor mask: +1 for dofs moving body(geom2), -1 for
-    dofs moving body(geom1); static/kinematic bodies contribute nothing."""
-    dyn = (np.asarray(model.body_type) == 0).astype(np.float32)
-    anc = np.asarray(model.ancestor_mask)
-    b1 = np.asarray(model.geom_body)[np.asarray(contact.geom1)]
-    b2 = np.asarray(model.geom_body)[np.asarray(contact.geom2)]
-    w = anc[b2] * dyn[b2][:, None] - anc[b1] * dyn[b1][:, None]
-    return torch.as_tensor(w.reshape(len(b1), model.nv), dtype=torch.float32, device=device)
 
 
 def contact_jacobians(model: Model, data: Data, contact: Contact) -> torch.Tensor:
@@ -61,9 +50,9 @@ def contact_jacobians(model: Model, data: Data, contact: Contact) -> torch.Tenso
     dof_axis, dof_anchor = dof_frames(model, data)
     rel = contact.pos[:, :, None, :] - dof_anchor[:, None, :, :]  # (B, C, nv, 3)
     axis = dof_axis[:, None].expand(rel.shape)
-    is_rot = fk_plan(model, rel.device).dof_is_rot[None, None, :, None]
+    is_rot = model_plan(model).dof_is_rot[None, None, :, None]
     col = torch.where(is_rot, rc.cross(axis, rel), axis)
-    return col * _contact_weights(model, contact, rel.device)[None, :, :, None]
+    return col * model_plan(model).weights_for(contact)[None, :, :, None]
 
 
 def limit_rows(model: Model, data: Data):
@@ -73,12 +62,13 @@ def limit_rows(model: Model, data: Data):
     is sign * e_{lim_dofs[d]}; the active side (lower/upper) is chosen by
     proximity. A positive impulse pushes the dof back into range.
     """
-    lim_dofs = np.nonzero(model.dof_limited)[0].astype(np.int64)
+    plan = model_plan(model)
+    lim_dofs = plan.lim_dofs
     B = data.batch_size
     if len(lim_dofs) == 0:
         z = data.qpos.new_zeros(B, 0)
         return z, z, lim_dofs
-    idx = torch.as_tensor(lim_dofs, device=data.qpos.device)
+    idx = plan.lim_dofs_t
     q = joint_positions(model, data)[:, idx]
     lo = model.dof_limit[..., idx, 0]
     hi = model.dof_limit[..., idx, 1]
@@ -108,14 +98,15 @@ def solve(
     # active-contact compaction: solve only the K deepest candidates per env
     K = model.max_active_contacts
     compact = 0 < K < C_full
-    w_full = _contact_weights(model, contact, dev)  # (C_full, nv)
+    w_full = model_plan(model).weights_for(contact)  # (C_full, nv)
     prev_ok = data.contact is not None and data.contact.impulse.shape[1] == C_full
     crest_full = (
         contact.restitution if contact.restitution is not None
         else torch.zeros_like(contact.friction)
     )
     if compact:
-        cdepth, idx = torch.topk(contact.depth, K, dim=1)  # (B, K)
+        # ties keep the lower candidate id, as the reference's top_k does
+        cdepth, idx = top_k_stable(contact.depth, K)  # (B, K)
 
         def take(x):
             return torch.gather(x, 1, idx[..., None].expand(B, K, x.shape[-1]))
@@ -153,7 +144,7 @@ def solve(
         else:
             dof_axis, dof_anchor = dof_frames(model, data)
         hvec = rc.cross(dof_axis, dof_anchor)
-        ir = fk_plan(model, dev).dof_is_rot.to(torch.float32)[None, :, None]
+        ir = model_plan(model).dof_is_rot.to(torch.float32)[None, :, None]
         Lf = torch.cat([dof_axis * ir, dof_axis * (1.0 - ir) - hvec * ir], -1)  # (B, nv, 6)
         Jc = torch.einsum("bvk,brk->bvr", Lf, Rf)  # (B, nv, 3C)
         Jc = Jc * torch.repeat_interleave(w.transpose(1, 2), 3, dim=2)
@@ -161,8 +152,9 @@ def solve(
         Jc = qvel_pred.new_zeros(B, nv, 0)
 
     if L > 0:
+        plan = model_plan(model)
         Jl = qvel_pred.new_zeros(B, nv, L)
-        Jl[:, torch.as_tensor(lim_dofs, device=dev), torch.arange(L, device=dev)] = sl_sign
+        Jl[:, plan.lim_dofs_t, plan.lim_rows_t] = sl_sign
         Jt = torch.cat([Jc, Jl], 2)  # (B, nv, R)
     else:
         Jt = Jc

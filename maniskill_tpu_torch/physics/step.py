@@ -10,7 +10,8 @@ import torch
 from ..utils.geometry import rotation_conversions as rc
 from .collision import collide
 from .dynamics import smooth_dynamics
-from .kinematics import fk_plan, forward_kinematics, forward_kinematics_raw
+from .kinematics import forward_kinematics, forward_kinematics_raw
+from .plan import model_plan
 from .solver import solve
 from .types import Data, Model
 
@@ -52,7 +53,7 @@ def integrate_qpos(model: Model, qpos: torch.Tensor, qvel: torch.Tensor, h: floa
     """Semi-implicit Euler position update (exact quaternion exp for
     rotations): one gather/scatter for all 1-dof joints, one batched
     quaternion integration for all FREE bodies."""
-    plan = fk_plan(model, qpos.device)
+    plan = model_plan(model)
     out = qpos.clone()
     if len(plan.one_q):
         out[:, plan.one_q] += h * qvel[:, plan.one_v]

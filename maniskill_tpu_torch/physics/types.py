@@ -139,6 +139,15 @@ class Model(_Replace):
     host_body_mass: Optional[np.ndarray] = None
     host_body_gravcomp: Optional[np.ndarray] = None
 
+    def replace(self, **changes):
+        """A copy with ``changes``; it keeps this model's device plan
+        (``physics/plan.py``) unless a field the plan reads changes."""
+        new = dataclasses.replace(self, **changes)
+        plan = self.__dict__.get("_plan")
+        if plan is not None and not changes.keys() & _PLAN_FIELDS and new.device == plan.device:
+            new._plan = plan
+        return new
+
     @property
     def npair(self) -> int:
         return len(self.pair_geom1)
@@ -195,6 +204,12 @@ _STATIC_FIELDS = {
     "host_body_mass", "host_body_gravcomp",
 }
 _INT_FIELDS = {"nq", "nv", "nbody", "ngeom", "solver_iterations", "max_active_contacts"}
+# the fields ``physics/plan.py`` builds its tables from
+_PLAN_FIELDS = {
+    "nv", "nbody", "body_parent", "body_jnt_type", "body_q_adr", "body_dof_adr",
+    "body_type", "geom_body", "geom_type", "pair_geom1", "pair_geom2", "dof_body",
+    "dof_is_rot", "dof_limited", "ancestor_mask", "mocap_bodies",
+}
 _FLOAT_FIELDS = {
     "timestep", "contact_slop", "baumgarte", "max_correction_vel",
     "contact_margin", "max_qvel", "max_impulse", "bounce_threshold",

@@ -60,6 +60,8 @@ class SceneMesh:
         self.num_faces = int(self.faces.shape[0])
         self._faces_t = torch.as_tensor(self.faces, device=device)
         self._vert_geom_t = torch.as_tensor(self.vert_geom.astype(np.int64), device=device)
+        self._all_faces = torch.ones(self.num_faces, dtype=torch.bool, device=device)
+        self._light_cache: Dict[int, tuple] = {}
 
     @classmethod
     def build(cls, model, scene, exclude_body_ids=()):
@@ -178,10 +180,9 @@ def _screen_faces(mesh: SceneMesh, world_verts, view, proj, height: int, width: 
 
 
 def _face_mask(mesh: SceneMesh, face_mask, device) -> torch.Tensor:
-    F = mesh.num_faces
-    return torch.as_tensor(
-        np.ones(F, bool) if face_mask is None else np.asarray(face_mask, bool), device=device
-    )
+    if face_mask is None:
+        return mesh._all_faces
+    return torch.as_tensor(np.asarray(face_mask, bool), device=device)
 
 
 def tiled_inputs(
@@ -289,9 +290,13 @@ def _face_normals(mesh: SceneMesh, world_verts: torch.Tensor) -> torch.Tensor:
     return fn / torch.clamp(torch.linalg.vector_norm(fn, dim=-1, keepdim=True), min=1e-9)
 
 
-def _face_rgb(mesh: SceneMesh, world_verts: torch.Tensor, lights) -> torch.Tensor:
-    """Per-face flat two-sided lambertian colour (B, F, 3)."""
-    fn = _face_normals(mesh, world_verts)
+def _light_tensors(mesh: SceneMesh, lights, device):
+    """(ambient (3,), [(direction (3,), colour (3,)), ...]) on ``device``,
+    copied once per mesh and light list."""
+    key = id(lights)
+    cached = mesh._light_cache.get(key)
+    if cached is not None and cached[0] is lights:
+        return cached[1]
     ambient = np.array([0.35, 0.35, 0.35], np.float32)
     light_dirs, light_cols = [], []
     for light in lights or ():
@@ -304,10 +309,22 @@ def _face_rgb(mesh: SceneMesh, world_verts: torch.Tensor, lights) -> torch.Tenso
     if not light_dirs:
         light_dirs = [np.array([0.4, 0.3, 0.85], np.float32)]
         light_cols = [np.array([0.7, 0.7, 0.7], np.float32)]
-    shade = torch.as_tensor(ambient, device=fn.device).expand(fn.shape)
-    for d, col in zip(light_dirs, light_cols):
-        lam = torch.abs(fn @ torch.as_tensor(d, device=fn.device))
-        shade = shade + lam[..., None] * torch.as_tensor(col, device=fn.device)
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    out = (t(ambient), [(t(d), t(c)) for d, c in zip(light_dirs, light_cols)])
+    mesh._light_cache[key] = (lights, out)
+    return out
+
+
+def _face_rgb(mesh: SceneMesh, world_verts: torch.Tensor, lights) -> torch.Tensor:
+    """Per-face flat two-sided lambertian colour (B, F, 3)."""
+    fn = _face_normals(mesh, world_verts)
+    ambient, directional = _light_tensors(mesh, lights, fn.device)
+    shade = ambient.expand(fn.shape)
+    for d, col in directional:
+        shade = shade + torch.abs(fn @ d)[..., None] * col
     return torch.clamp(mesh.face_color[None] * shade, 0.0, 1.0)
 
 

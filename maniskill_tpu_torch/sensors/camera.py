@@ -82,16 +82,24 @@ class Camera:
             self.fy = self.fx = H / (2 * np.tan(fov / 2))
             self.cx, self.cy = W / 2, H / 2
         self.fov = fov
+        dev = scene.device
         self.proj = torch.as_tensor(
             perspective_matrix(fov, W / H, config.near, config.far),
-            dtype=torch.float32, device=scene.device,
+            dtype=torch.float32, device=dev,
+        )
+        # per-step constants, copied to the device once
+        self._local_pose = torch.as_tensor(config.pose, dtype=torch.float32, device=dev)
+        self._ros_to_gl = torch.as_tensor(ROS_TO_GL, dtype=torch.float32, device=dev)
+        self._ros_to_cv = torch.as_tensor(ROS_TO_CV, dtype=torch.float32, device=dev)
+        self._K = torch.tensor(
+            [[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]], dtype=torch.float32, device=dev,
         )
         self._mesh_cache: Dict[tuple, SceneMesh] = {}
 
     # -- pose ------------------------------------------------------------
     def world_pose(self) -> Pose:
         """Camera pose in world (ROS convention: +x forward), per env."""
-        local = Pose.create(torch.as_tensor(self.config.pose, dtype=torch.float32, device=self.scene.device))
+        local = Pose(self._local_pose)
         if self.config.mount is not None:
             return self.config.mount.pose * local
         return Pose(local.raw_pose.expand(self.scene.num_envs, 7))
@@ -100,7 +108,7 @@ class Camera:
         """(B, 4, 4) world -> OpenGL camera."""
         inv = self.world_pose().inv()
         R = rc.quaternion_to_matrix(inv.q)  # (B, 3, 3) world -> ros cam
-        gl = torch.as_tensor(ROS_TO_GL, dtype=torch.float32, device=R.device)
+        gl = self._ros_to_gl
         B = R.shape[0]
         m = torch.zeros(B, 4, 4, device=R.device)
         m[:, :3, :3] = torch.einsum("ij,bjk->bik", gl, R)
@@ -170,19 +178,16 @@ class Camera:
         pose = self.world_pose()
         dev = pose.raw_pose.device
         B = pose.raw_pose.shape[0]
-        gl = torch.as_tensor(ROS_TO_GL.T, dtype=torch.float32, device=dev)  # gl cam -> ros cam
+        gl = self._ros_to_gl.T  # gl cam -> ros cam
         c2w = torch.zeros(B, 4, 4, device=dev)
         c2w[:, :3, :3] = torch.einsum("bij,jk->bik", rc.quaternion_to_matrix(pose.q), gl)
         c2w[:, :3, 3] = pose.p
         c2w[:, 3, 3] = 1.0
-        cv = torch.as_tensor(ROS_TO_CV, dtype=torch.float32, device=dev)
+        cv = self._ros_to_cv
         inv = pose.inv()
         Rw = torch.einsum("ij,bjk->bik", cv, rc.quaternion_to_matrix(inv.q))
         tw = torch.einsum("ij,bj->bi", cv, inv.p)
-        K = torch.tensor(
-            [[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]],
-            dtype=torch.float32, device=dev,
-        )
+        K = self._K
         return dict(
             extrinsic_cv=torch.cat([Rw, tw[..., None]], -1),
             cam2world_gl=c2w,

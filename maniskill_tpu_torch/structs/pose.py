@@ -99,7 +99,7 @@ class Pose:
     def inv(self) -> "Pose":
         raw = self.raw_pose
         if isinstance(raw, torch.Tensor):
-            q_inv = raw[..., 3:] * raw.new_tensor([1.0, -1.0, -1.0, -1.0])
+            q_inv = torch.cat([raw[..., 3:4], -raw[..., 4:]], -1)
             return Pose(torch.cat([-_quat_apply(q_inv, raw[..., :3]), q_inv], -1))
         q_inv = raw[..., 3:] * np.array([1.0, -1.0, -1.0, -1.0], raw.dtype)
         return Pose(np.concatenate([-_quat_apply(q_inv, raw[..., :3]), q_inv], -1))

@@ -1,7 +1,7 @@
 """Common batched helpers (counterpart of maniskill_tpu/utils/common.py)."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -40,3 +40,18 @@ def flatten_state_dict(state_dict: Dict) -> torch.Tensor:
     if not leaves:
         return torch.zeros(0)
     return torch.cat(leaves, -1)
+
+
+def compute_angle_between(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Batched angle between vectors over the last axis (radians)."""
+    n1 = x1 / torch.clamp(torch.linalg.vector_norm(x1, dim=-1, keepdim=True), min=1e-9)
+    n2 = x2 / torch.clamp(torch.linalg.vector_norm(x2, dim=-1, keepdim=True), min=1e-9)
+    return torch.arccos(torch.clamp(torch.sum(n1 * n2, -1), -1.0, 1.0))
+
+
+def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries along the last axis, ties resolved lower index
+    first, as XLA's ``top_k`` does (``torch.topk`` leaves the tie order
+    unspecified)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

@@ -31,6 +31,11 @@ def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quaternion_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate of wxyz quaternion(s), the inverse of a unit quaternion."""
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
 def quaternion_apply(q: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
     """Rotate point(s) by quaternion(s): p' = p + 2w(u x p) + 2 u x (u x p)."""
     w = q[..., :1]

@@ -75,7 +75,8 @@ def test_slice_matches_reference():
 
 def test_import_and_step_without_jax():
     """The port imports no jax, flax or gymnasium: a process that blocks them
-    still imports maniskill_tpu_torch and runs a CPU step of the slice."""
+    still imports maniskill_tpu_torch and runs a CPU step of the Cartpole
+    RGB slice and of PickCube-v1."""
     code = textwrap.dedent('''
         import sys
         import importlib.abc
@@ -98,6 +99,11 @@ def test_import_and_step_without_jax():
         env.reset(seed=0)
         obs, *_ = env.step(np.zeros((2, 1), np.float32))
         assert tuple(obs["sensor_data"]["base_camera_0"]["rgb"].shape) == (2, 128, 128, 3)
+        env = make("PickCube-v1", num_envs=2, obs_mode="state",
+                   control_mode="pd_joint_delta_pos", device="cpu")
+        env.reset(seed=0)
+        obs, *_ = env.step(np.zeros((2, 8), np.float32))
+        assert tuple(obs.shape) == (2, 51) and bool(obs.isfinite().all())
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded
         print("STEP_OK")

@@ -39,7 +39,7 @@ from maniskill_tpu_torch.physics import dynamics as tdyn
 from maniskill_tpu_torch.physics import kinematics as tkin
 from maniskill_tpu_torch.physics import solver as tsolver
 from maniskill_tpu_torch.physics.collision import collide as tcollide
-from maniskill_tpu_torch.physics.types import BOX, FREE, HINGE, KINEMATIC, PLANE, SLIDE, SPHERE
+from maniskill_tpu_torch.physics.types import BOX, CYLINDER, FREE, HINGE, KINEMATIC, PLANE, SLIDE, SPHERE
 
 jstep = importlib.import_module("maniskill_tpu.physics.step")
 tstep = importlib.import_module("maniskill_tpu_torch.physics.step")
@@ -64,7 +64,7 @@ def _cartpole(scene_cls, robot_cls, **kw):
 
 
 def _free_scene(mb):
-    # contype/conaffinity keep the sphere-sphere pair out (not ported yet)
+    # contype/conaffinity keep the sphere-sphere pair out
     mb.add_geom(0, PLANE, [0, 0, 0], friction=0.8, contype=3, conaffinity=3)
     ball = mb.add_body("ball", jnt_type=FREE, mass=0.5, inertia=[2e-3, 2.5e-3, 3e-3],
                        ipos=[0.01, 0, 0], iquat=[0.9238795, 0, 0, 0.3826834])
@@ -372,12 +372,15 @@ def test_solve_hand_made_contacts(max_active, f32_reference_solver):
 
 
 def test_collide_raises_for_unported_pair():
+    """A candidate pair whose kind has no narrowphase (here box-cylinder,
+    which the builder never emits) raises, naming the pair."""
     mb = tphys.ModelBuilder()
     a = mb.add_body("a", jnt_type=FREE)
     mb.add_geom(a, BOX, [0.1, 0.1, 0.1])
     b = mb.add_body("b", jnt_type=FREE)
     mb.add_geom(b, BOX, [0.1, 0.1, 0.1])
     m = mb.finalize("cpu")
+    m = m.replace(geom_type=np.array([BOX, CYLINDER], np.int32))
     d = tkin.forward_kinematics(m, tphys.make_data(m, 2))
-    with pytest.raises(NotImplementedError, match="box-box"):
+    with pytest.raises(NotImplementedError, match="box-cylinder"):
         tcollide(m, d)
