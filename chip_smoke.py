@@ -25,6 +25,20 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      plain version (seg agreement >= 0.999, rgb equal), faces per band.
   9. FrankaMoveBenchmark-v1 (4096 envs) and FrankaPickCubeBenchmark-v1 (8192
      envs), state: 20 timed steps each; finite, overflow 0.
+ 10. PPO, PickCube-v1 state, 4096 envs, README's recipe (rollout 4, 8
+     epochs, 32 minibatches), 3 iterations: loss finite, no non-finite
+     params, obs or rewards; env-steps/s and rollout/update ms per
+     iteration; one more rollout under the profiler: 0 stream/event syncs
+     and 0 host-to-device copies per rollout step.
+ 11. The repo's JAX-trained ppo_pickcube_state.pkl carried into the port and
+     evaluated greedily at 4096 envs over 50 steps: success_once >= 0.85.
+ 12. PPO, PushCube-v1 rgb, 512 envs, README's recipe (rollout 8), 2
+     iterations: the same finiteness; the raster kernel launches twice per
+     rollout step (the step's frame and the masked reset's); the last frame
+     of 16 envs re-rendered through the plain version (seg agreement >=
+     0.999, rgb equal).
+ 13. ppo_pushcube_rgb.pkl evaluated greedily at 512 envs over 50 steps:
+     success_once >= 0.80.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on each path, errors, times and bounds.
 """
@@ -42,6 +56,12 @@ CARTPOLE = ("CartpoleBalanceBenchmark-v1", 1024, 50)
 PICKCUBE_STATE = ("PickCube-v1", 4096, 50)
 PICKCUBE_RGB = ("PickCube-v1", 2048, 50)
 FRANKA = (("FrankaMoveBenchmark-v1", 4096, 20), ("FrankaPickCubeBenchmark-v1", 8192, 20))
+# PPO cells: README.md's recipes (env, envs, rollout steps, epochs, minibatches,
+# iterations run here, total steps of the recipe for the learning-rate decay)
+PPO_STATE = ("PickCube-v1", 4096, 4, 8, 32, 3, 100_000_000)
+PPO_RGB = ("PushCube-v1", 512, 8, 4, 8, 2, 12_000_000)
+STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
+RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
 SEG_AGREE_MIN = 0.999  # re-render seg agreement bound (the kernel is bit-exact: expect 1.0)
 CUBE_WEIGHT = 0.064 * 9.81  # PickCube's 4 cm cube of density 1000, in N
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 instructions/s
@@ -113,6 +133,83 @@ def rerender_check(base, cam_name, n, tr, tiled_inputs, geom_poses, rgb, name):
     rgb_plain = (torch.clamp(rp, 0, 1) * 255).to(torch.uint8)
     check(bool(torch.equal(rgb_plain, rgb[:n])), f"{name}: rgb obs differs from the plain re-render")
     return inputs, (zk[:n] - zp).abs().max().item(), agree
+
+
+def ppo_phase(torch, dev, make, card, obs_mode, cell, kernel):
+    """PPO iterations on one cell through ``PPOTrainer``: checks finiteness,
+    times rollout and update (CUDA-synchronized), profiles one more rollout
+    for host syncs and copies, and counts the raster kernel's launches in
+    the timed iterations when given the kernel. Returns (env, trainer, last
+    obs, kernel launches or None)."""
+    from maniskill_tpu_torch.parallel.train import PPOConfig, PPOTrainer
+    from maniskill_tpu_torch.utils.timing import profile_calls
+
+    uid, n_envs, rollout, epochs, minibatches, iters, total_steps = cell
+    name = f"ppo {obs_mode} {uid} x{n_envs}"
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode=obs_mode, device=dev)
+    obs, _ = env.reset(seed=1)
+    config = PPOConfig(rollout_steps=rollout, update_epochs=epochs, num_minibatches=minibatches)
+    trainer = PPOTrainer(env, config, obs, seed=1, total_updates=total_steps // (n_envs * rollout))
+    obs = trainer.obs_tf(obs)
+    elapsed = torch.zeros(n_envs, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    print(f"{name}: env and trainer built in {time.perf_counter() - t0:.2f} s")
+    if kernel is not None:
+        kernel.launches = 0
+    roll_ms, upd_ms = [], []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        obs, elapsed, traj = trainer.rollout(obs, elapsed)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = trainer.update(obs, traj)
+        torch.cuda.synchronize()
+        roll_ms.append((t1 - t0) * 1e3)
+        upd_ms.append((time.perf_counter() - t1) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        check(np.isfinite(m["loss"]), f"{name}: loss {m['loss']}")
+        for k in ("bad_params", "bad_obs", "bad_rewards"):
+            check(m[k] == 0, f"{name}: {k} = {m[k]}")
+        print(f"{name}: loss {m['loss']:.4f} mean_reward {m['mean_reward']:.4f} "
+              f"ep_success {m['ep_success']:.3f} max_adv {m['max_adv']:.3g}")
+    launches = None
+    if kernel is not None:
+        launches, want = kernel.launches, 2 * rollout * iters
+        check(launches == want, f"{name}: raster kernel launches {launches} != {want} "
+                                "(a frame per step and per masked reset)")
+    total_s = (sum(roll_ms) + sum(upd_ms)) / 1e3
+    print(f"{name} rate: {n_envs * rollout * iters / total_s:.1f} env-steps/s end to end "
+          f"({iters} iterations: rollout {', '.join(f'{t:.1f}' for t in roll_ms)} ms, "
+          f"update {', '.join(f'{t:.1f}' for t in upd_ms)} ms; {epochs} epochs x {minibatches} "
+          f"minibatches) {card}")
+    out = []
+    _, prof = profile_calls(lambda: out.append(trainer.rollout(obs, elapsed)), 1)
+    obs = out[0][0]
+    per_step = {k: prof[k] / rollout for k in ("launches", "syncs", "h2d_copies", "device_kernel_ms", "wall_ms")}
+    print(f"{name} rollout profile per control step: {per_step['launches']:.0f} launches, "
+          f"{per_step['syncs']:.2f} stream/event syncs, {per_step['h2d_copies']:.2f} host-to-device copies, "
+          f"device kernels {per_step['device_kernel_ms']:.3f} ms of {per_step['wall_ms']:.3f} ms "
+          f"(idle {prof['device_idle_share']:.3f}) {card}")
+    check(per_step["syncs"] == 0, f"{name}: the rollout syncs with the device")
+    check(per_step["h2d_copies"] == 0, f"{name}: the rollout copies host to device")
+    return env, trainer, obs, launches
+
+
+def evaluate_checkpoint(torch, env, trainer, path, success_min, card):
+    """The JAX package's pickled checkpoint carried into the trainer's model
+    and evaluated greedily (50 steps, success once)."""
+    from maniskill_tpu_torch.parallel.train import evaluate, load_jax_checkpoint, params_from_flax
+
+    base = env.unwrapped
+    trainer.model.load_state_dict(params_from_flax(load_jax_checkpoint(path)))
+    t0 = time.perf_counter()
+    success = evaluate(env, trainer.model, stochastic=False, seed=123)
+    rate = float(success.float().mean())
+    torch.cuda.synchronize()
+    print(f"{path} on {base.uid} x{base.num_envs}: greedy success_once {rate:.6f} "
+          f"({int(success.sum())}/{base.num_envs}) over 50 steps in {time.perf_counter() - t0:.2f} s {card}")
+    check(rate >= success_min, f"{path}: greedy success_once {rate:.4f} < {success_min}")
 
 
 def main(device: str = "cuda"):
@@ -357,6 +454,36 @@ def main(device: str = "cuda"):
         print(f"{uid}: {n_steps} steps x {n_envs} envs, finite, overflow 0, "
               f"{n_envs * n_steps / step_s:.1f} env-steps/s ({step_s / n_steps * 1e3:.2f} ms/step, eager) {card}")
         del env, base, data
+
+    # ---- phases 10-11: PPO state, PickCube-v1 --------------------------------
+    env, trainer, _, _ = ppo_phase(torch, dev, make, card, "state", PPO_STATE, None)
+    evaluate_checkpoint(torch, env, trainer, STATE_CKPT, STATE_SUCCESS_MIN, card)
+    del env, trainer
+
+    # ---- phases 12-13: PPO rgb, PushCube-v1 ---------------------------------
+    env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgb", PPO_RGB, kernel)
+    base = env.unwrapped
+    inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, obs["rgb"],
+                                        "pushcube ppo rgb")
+    max_err = max(max_err, err)
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
+    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+    n_envs = PPO_RGB[1]
+    paths[f"pushcube_ppo_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms,
+                                              bound_ms=bound_ms, bound_by=bound_by)
+    print(f"pushcube ppo rgb: last frame of 16 envs re-rendered through the plain version: seg agreement "
+          f"{agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal")
+    print(f"raster kernel (pushcube, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) {card}")
+    print(f"pushcube faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, "
+          f"faces in the scene {inputs[0].shape[1]}")
+    evaluate_checkpoint(torch, env, trainer, RGB_CKPT, RGB_SUCCESS_MIN, card)
+    del env, trainer, inputs, table, idx, counts, obs
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

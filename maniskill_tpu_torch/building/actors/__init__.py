@@ -1,3 +1,3 @@
-from .common import build_box, build_cube, build_sphere
+from .common import build_box, build_cube, build_cylinder, build_red_white_target, build_sphere
 
-__all__ = ["build_box", "build_cube", "build_sphere"]
+__all__ = ["build_box", "build_cube", "build_cylinder", "build_red_white_target", "build_sphere"]

@@ -82,7 +82,7 @@ class BaseEnv:
 
         self._hidden_objects: List = []
         self._elapsed_steps = torch.zeros(num_envs, dtype=torch.int32, device=self.device)
-        self._episode_seeds = np.zeros(num_envs, np.int64)
+        self._episode_seeds = torch.zeros(num_envs, dtype=torch.int64, device=self.device)
         self._main_rng: Optional[np.random.RandomState] = None
 
         self._reconfigure()
@@ -208,45 +208,68 @@ class BaseEnv:
     # reset
     # ==================================================================
     def reset(self, seed=None, options=None):
+        """Reset the envs that ``options["env_idx"]`` selects (indices, or a
+        (num_envs,) bool tensor that stays on the device), all by default."""
         options = options or {}
         self._set_main_rng(seed)
-        env_idx = options.get("env_idx", None)
-        mask = np.zeros(self.num_envs, bool)
-        if env_idx is None:
-            mask[:] = True
-        else:
-            mask[np.asarray(env_idx)] = True
+        mask = self.env_idx_mask(options.get("env_idx", None))
 
         # per-env episode seeds: an explicit list/array sets them directly so
         # replay reproduces episodes; an int seeds env i with seed + i
         if isinstance(seed, (list, tuple, np.ndarray)):
             explicit = np.asarray(seed, np.int64).reshape(-1)
-            if len(explicit) == int(mask.sum()):
-                self._episode_seeds[mask] = explicit
+            host_mask = mask.cpu().numpy()
+            seeds = self._episode_seeds.cpu().numpy()
+            if len(explicit) == int(host_mask.sum()):
+                seeds[host_mask] = explicit
             elif len(explicit) == self.num_envs:
-                self._episode_seeds[mask] = explicit[mask]
+                seeds[host_mask] = explicit[host_mask]
             else:
-                self._episode_seeds[mask] = np.resize(explicit, int(mask.sum()))
+                seeds[host_mask] = np.resize(explicit, int(host_mask.sum()))
+            new_seeds = torch.as_tensor(seeds, device=self.device)
         elif seed is not None:
-            self._episode_seeds[mask] = (seed + np.arange(self.num_envs, dtype=np.int64))[mask]
+            new_seeds = seed + torch.arange(self.num_envs, dtype=torch.int64, device=self.device)
         else:
-            self._episode_seeds[mask] = self._main_rng.randint(0, 2**31, size=int(mask.sum()))
+            new_seeds = torch.as_tensor(
+                self._main_rng.randint(0, 2**31, size=self.num_envs).astype(np.int64), device=self.device
+            )
+        self._episode_seeds = torch.where(mask, new_seeds, self._episode_seeds)
 
-        self._batched_episode_rng = BatchedRNG.from_seeds(self._episode_seeds, self.device)
-        mask_dev = torch.as_tensor(mask, device=self.device)
+        obs, info = self._reset_impl(mask, self._episode_seeds,
+                                     options.get("reset_to_env_states", None))
+        self._elapsed_steps = torch.where(mask, 0, self._elapsed_steps)
+        return obs, info
+
+    def env_idx_mask(self, env_idx) -> torch.Tensor:
+        """``env_idx`` (None for every env, indices, or a (num_envs,) bool
+        tensor) as a (num_envs,) bool mask on the device."""
+        if isinstance(env_idx, torch.Tensor) and env_idx.dtype == torch.bool:
+            return env_idx.to(self.device)
+        host = np.ones(self.num_envs, bool)
+        if env_idx is not None:
+            host[:] = False
+            host[np.asarray(env_idx)] = True
+        return torch.as_tensor(host, device=self.device)
+
+    def _reset_impl(self, mask: torch.Tensor, seeds: torch.Tensor, reset_state=None):
+        """Reset the envs where the (num_envs,) bool ``mask`` is set, drawing
+        their episode from the (num_envs,) int64 ``seeds``; both stay on the
+        device, so a masked reset inside a rollout makes no host sync.
+        Returns (obs, info) of every env; elapsed steps are the caller's."""
         scene = self.scene
+        scene._reset_mask = mask
+        self._batched_episode_rng = BatchedRNG.from_seeds(seeds)
         data = scene.data
-        scene._reset_mask = mask_dev
 
-        # clear velocities and drive targets of the resetting envs
+        # clear velocities, drive targets and extras of the resetting envs
         scene.data = data.replace(
             qvel=scene.masked(torch.zeros_like(data.qvel), data.qvel),
             drive_target=scene.masked(torch.zeros_like(data.drive_target), data.drive_target),
             drive_vel_target=scene.masked(
                 torch.zeros_like(data.drive_vel_target), data.drive_vel_target
             ),
+            extras={k: scene.masked(torch.zeros_like(v), v) for k, v in data.extras.items()},
         )
-        reset_state = options.get("reset_to_env_states", None)
         if reset_state is not None:
             self.set_state_dict(reset_state)
         else:
@@ -255,7 +278,6 @@ class BaseEnv:
         self.agent.controller.reset()
         scene._reset_mask = None
 
-        self._elapsed_steps = torch.where(mask_dev, 0, self._elapsed_steps)
         info = self.get_info()
         return self.get_obs(info), info
 
@@ -279,6 +301,16 @@ class BaseEnv:
         shape = tuple(self.single_action_space.shape)
         if action.ndim == len(shape):
             action = action.expand((self.num_envs,) + shape)
+        obs, reward, terminated, info = self._step_impl(action)
+        self._elapsed_steps = self._elapsed_steps + 1
+        truncated = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+        info = dict(info)
+        info["elapsed_steps"] = self._elapsed_steps
+        return obs, reward, terminated, truncated, info
+
+    def _step_impl(self, action: torch.Tensor):
+        """One control step of a (num_envs, A) action on the scene's state:
+        (obs, reward, terminated, info). Elapsed steps are the caller's."""
         scene = self.scene
         scene._reset_mask = None
         self.agent.set_action(action)
@@ -292,12 +324,7 @@ class BaseEnv:
         info = self.get_info()
         obs = self.get_obs(info)
         reward = self.get_reward(obs=obs, action=action, info=info)
-        terminated = self._get_terminated(info)
-        self._elapsed_steps = self._elapsed_steps + 1
-        truncated = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
-        info = dict(info)
-        info["elapsed_steps"] = self._elapsed_steps
-        return obs, reward, terminated, truncated, info
+        return obs, reward, self._get_terminated(info), info
 
     def _get_terminated(self, info: dict) -> torch.Tensor:
         success = info.get("success", None)

@@ -1,1 +1,2 @@
 from .pick_cube import PickCubeEnv
+from .push_cube import PushCubeEnv

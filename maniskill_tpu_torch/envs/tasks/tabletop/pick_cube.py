@@ -66,11 +66,12 @@ class PickCubeEnv(BaseEnv):
             initial_pose=np.array([0, 0, 0, 1, 0, 0, 0]),
         )
         self._hidden_objects.append(self.goal_site)
+        self._spawn_center = torch.tensor(self.cube_spawn_center, device=self.device)
 
     def _initialize_episode(self, env_idx: torch.Tensor, options: dict):
         self.table_scene.initialize(env_idx)
         rng = self._batched_episode_rng
-        center = torch.tensor(self.cube_spawn_center, device=self.device)
+        center = self._spawn_center
         half = self.cube_spawn_half_size
         xy = rng.uniform(-half, half, (2,)) + center
         xyz = torch.cat([xy, torch.full_like(xy[:, :1], self.cube_half_size)], -1)

@@ -38,6 +38,15 @@ class TableSceneBuilder(SceneBuilder):
         b.set_initial_pose(np.array([-0.12, 0, 0, 1, 0, 0, 0]))
         self.table = b.build_static("table-workspace")
         self.table_height = TABLE_HEIGHT
+        kf = self.env.agent.keyframes.get("rest")
+        if kf is not None and kf.qpos is not None:
+            # on the device once: a host-to-device copy in every reset would
+            # stall the rollout's masked resets
+            self._rest_qpos = torch.as_tensor(np.asarray(kf.qpos, np.float32), device=self.env.device)
+            # the gripper joints stay exactly at the keyframe
+            self._noise_mask = torch.ones(len(kf.qpos), device=self.env.device)
+            if len(kf.qpos) >= 2:
+                self._noise_mask[-2:] = 0.0
 
     def initialize(self, env_idx):
         env = self.env
@@ -46,10 +55,5 @@ class TableSceneBuilder(SceneBuilder):
         if kf is None or kf.qpos is None:
             agent.reset()
             return
-        qpos = torch.as_tensor(np.asarray(kf.qpos, np.float32), device=env.device)
         noise = env._batched_episode_rng.normal(0.0, self.robot_init_qpos_noise, size=(len(kf.qpos),))
-        # the gripper joints stay exactly at the keyframe
-        mask = torch.ones(len(kf.qpos), device=env.device)
-        if len(kf.qpos) >= 2:
-            mask[-2:] = 0.0
-        agent.reset(qpos + noise * mask)
+        agent.reset(self._rest_qpos + noise * self._noise_mask)

@@ -57,6 +57,17 @@ def convert_observation_to_space(obs: Any, unbatched: bool = True):
     return Box(-np.inf, np.inf, shape, np.float32)
 
 
+def find_max_episode_steps_value(env):
+    """The first ``max_episode_steps`` down the wrapper chain (the port's
+    ``TimeLimitWrapper`` carries it), or None."""
+    cur = env
+    while cur is not None:
+        if getattr(cur, "max_episode_steps", None) is not None:
+            return cur.max_episode_steps
+        cur = getattr(cur, "env", None)
+    return None
+
+
 def batch_space(space, n: int):
     """The space of ``n`` stacked samples of ``space``."""
     if isinstance(space, Dict):

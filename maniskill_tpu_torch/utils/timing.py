@@ -30,3 +30,47 @@ def timed_steps(env, action, n: int) -> float:
         env.step(action)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def profile_calls(fn, n: int):
+    """Run ``fn()`` ``n`` times under torch.profiler (CPU and CUDA
+    activity). Returns (profiler, per-call summary): kernel launches, stream
+    and event syncs (the window's own closing device sync is neither),
+    memcpy calls, host-to-device copies, device kernel ms, host ms and the
+    device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def count(*names):
+        return sum(e.count for e in events if e.key in names)
+
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    summary = dict(
+        launches=count("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC") / n,
+        syncs=count("cudaStreamSynchronize", "cudaEventSynchronize") / n,
+        memcpy=count("cudaMemcpyAsync", "cudaMemcpy") / n,
+        h2d_copies=sum(e.count for e in events if e.key.startswith("Memcpy HtoD")) / n,
+        device_kernel_ms=device_ms / n,
+        wall_ms=wall_ms / n,
+        device_idle_share=1.0 - device_ms / wall_ms if wall_ms > 0 else None,
+    )
+    summary["top_kernels_ms"] = {e.key[:80]: device_us(e) / 1e3 / n
+                                 for e in sorted(kernels, key=device_us, reverse=True)[:15]}
+    return prof, summary
+
+
+def device_us(event) -> float:
+    """A profiler event's own device time in us (the attribute's name
+    differs between torch versions)."""
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)

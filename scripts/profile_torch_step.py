@@ -41,8 +41,6 @@ def main():
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step.py needs a CUDA card")
@@ -50,7 +48,7 @@ def main():
     from maniskill_tpu_torch import make
     from maniskill_tpu_torch.physics import collision, dynamics, kinematics, solver
     from maniskill_tpu_torch.physics.step import step as physics_step
-    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+    from maniskill_tpu_torch.utils.timing import cuda_ms, profile_calls, timed_steps
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -80,35 +78,22 @@ def main():
     }
     n_sub = base.sim_config.sim_steps_per_control
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_wall_ms = timed_steps(env, action, PROFILE_STEPS) * 1e3
+    prof, prof_sum = profile_calls(lambda: env.step(action), PROFILE_STEPS)
     events = prof.key_averages()
-
-    def count(*names):
-        return sum(e.count for e in events if e.key in names)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset"))]
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    n = PROFILE_STEPS
     summary = dict(
         env=args.env, num_envs=args.num_envs, obs_mode=args.obs_mode, card=card,
         step_ms=step_ms, env_steps_per_s=args.num_envs / step_ms * 1e3,
         substeps_per_step=n_sub, substep_parts_ms=parts,
-        launches_per_step=count("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC") / n,
-        # the window's own torch.cuda.synchronize() calls are device syncs;
+        launches_per_step=prof_sum["launches"],
         # a sync inside the step shows as a stream or event sync
-        syncs_per_step=count("cudaStreamSynchronize", "cudaEventSynchronize") / n,
-        memcpy_per_step=count("cudaMemcpyAsync", "cudaMemcpy") / n,
-        device_kernel_ms_per_step=device_ms / n,
-        profiled_wall_ms_per_step=prof_wall_ms / n,
-        device_idle_share=1.0 - device_ms / prof_wall_ms if prof_wall_ms > 0 else None,
+        syncs_per_step=prof_sum["syncs"],
+        memcpy_per_step=prof_sum["memcpy"],
+        h2d_copies_per_step=prof_sum["h2d_copies"],
+        device_kernel_ms_per_step=prof_sum["device_kernel_ms"],
+        profiled_wall_ms_per_step=prof_sum["wall_ms"],
+        device_idle_share=prof_sum["device_idle_share"],
+        top_kernels_ms_per_step=prof_sum["top_kernels_ms"],
     )
-    top = sorted(kernels, key=dev_us, reverse=True)[:15]
-    summary["top_kernels_ms_per_step"] = {e.key[:80]: dev_us(e) / 1e3 / n for e in top}
     with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
         sort = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
         f.write(events.table(sort_by=sort, row_limit=60))

@@ -74,14 +74,15 @@ def test_slice_matches_reference():
 
 
 def test_import_and_step_without_jax():
-    """The port imports no jax, flax or gymnasium: a process that blocks them
-    still imports maniskill_tpu_torch and runs a CPU step of the Cartpole
-    RGB slice and of PickCube-v1."""
+    """The port imports no jax, flax, optax, gymnasium or maniskill_tpu: a
+    process that blocks them still imports maniskill_tpu_torch, runs a CPU
+    step of the Cartpole RGB slice and of PickCube-v1, builds the PPO
+    trainer and loads the repo's state checkpoint into it."""
     code = textwrap.dedent('''
         import sys
         import importlib.abc
 
-        BLOCKED = ("jax", "jaxlib", "flax", "gymnasium")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "gymnasium", "maniskill_tpu")
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path, target=None):
@@ -104,6 +105,10 @@ def test_import_and_step_without_jax():
         env.reset(seed=0)
         obs, *_ = env.step(np.zeros((2, 8), np.float32))
         assert tuple(obs.shape) == (2, 51) and bool(obs.isfinite().all())
+        from maniskill_tpu_torch.parallel import train
+        trainer = train.PPOTrainer(env, train.PPOConfig(rollout_steps=1), obs)
+        tree = train.load_jax_checkpoint("examples_checkpoints/ppo_pickcube_state.pkl")
+        trainer.model.load_state_dict(train.params_from_flax(tree))
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded
         print("STEP_OK")

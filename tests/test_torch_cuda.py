@@ -120,3 +120,40 @@ def test_pick_cube_rgb_through_the_kernel(cuda):
     assert int(dp) == 0
     assert torch.equal((torch.clamp(rp, 0, 1) * 255).to(torch.uint8), rgb)
     assert (sp >= 0).float().mean() > 0.5
+
+
+def test_batched_rng_cpu_equals_cuda(cuda):
+    """The same seeds draw the same episode on either device: uniforms and
+    integers bit for bit; normals (log, sqrt, cos) within 1e-6."""
+    from maniskill_tpu_torch.envs.utils.randomization.batched_rng import BatchedRNG
+
+    seeds = torch.tensor([0, 7, -5, 2**40 + 3, 2**31 - 1, 12345])
+
+    def draws(dev):
+        rng = BatchedRNG.from_seeds(seeds.to(dev))
+        return [rng.uniform(-0.1, 0.1, (2,)), rng.randint(3, 11, size=(5,)), rng.normal(0.0, 0.02, size=(9,)),
+                rng.quaternions(lock_x=True, lock_y=True), rng.quaternions()]
+
+    cpu, gpu = draws("cpu"), draws(cuda)
+    for a, b in zip(cpu[:2], gpu[:2]):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(cpu[2:], gpu[2:]):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-6)
+
+
+def test_state_train_step_on_card(cuda):
+    """One PPO iteration of PickCube-v1 state on the card: finite, and every
+    tensor of the iteration stays on the card."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.parallel import train
+
+    n = 64
+    env = make("PickCube-v1", num_envs=n, obs_mode="state", device=cuda)
+    obs, _ = env.reset(seed=0)
+    trainer = train.PPOTrainer(env, train.PPOConfig(rollout_steps=2, update_epochs=2, num_minibatches=2), obs)
+    obs, elapsed, metrics = trainer.train_step(obs, torch.zeros(n, dtype=torch.int32, device=cuda))
+    assert obs.is_cuda and elapsed.is_cuda and all(v.is_cuda for v in metrics.values())
+    assert torch.isfinite(metrics["loss"])
+    for k in ("bad_params", "bad_obs", "bad_rewards"):
+        assert int(metrics[k]) == 0, k
