@@ -39,12 +39,38 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      0.999, rgb equal).
  13. ppo_pushcube_rgb.pkl evaluated greedily at 512 envs over 50 steps:
      success_once >= 0.80.
+ 14. End-effector and joint-velocity control, PickCube-v1 state, 4096 envs:
+     for each of the four pd_ee_* modes and pd_joint_vel, 20 timed
+     zero-action steps, the IK's ms, launches and syncs per control step,
+     and one profiled step with 0 stream/event syncs and 0 host-to-device
+     copies; a constant +x command in pd_ee_delta_pos moves the TCP along +x
+     (cosine >= 0.99); zero actions in pd_ee_target_delta_pose drift the TCP
+     as the CPU does from the same state (16 envs, within 0.1 mm).
+ 15. PickCube-v1 rgb+depth+segmentation and state, 2048 envs: 50 timed steps
+     each, the two envs alternating step by step, and their rate ratio (the
+     median of the step pairs'); kernel launches == resets + steps, dropped
+     == 0, the last frame of 16 envs re-rendered through the plain version
+     (int16 depth equal, seg agreement >= 0.999, rgb equal), the cube's and
+     the robot's segmentation ids present.
+ 16. The batched motion planner, state: StackCube-v1 at 4096 envs and the
+     seven other solved tasks at 1024, in 4 processes that share the card;
+     success >= the JAX package's recorded demo rate less 0.15 (LiftPegUpright:
+     its own measured rate less 0.15), one host sync per move, overflow 0;
+     then the planner CLI (examples/motionplanning/run.py) on StackCube-v1 at
+     4096 envs alone on the card: its success line, over the same limit.
+ 17. The planner on StackCube-v1 rgb+depth+segmentation at 2048 envs: success
+     within 0.02 of phase 16's, kernel launches == resets + steps, the last
+     frame of 16 envs re-rendered as in phase 15, both cubes' ids present.
+Phases 6 and 8 time 20 steps and phase 10 runs 2 PPO iterations, so that
+the whole run stays well inside its time limit.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on each path, errors, times and bounds.
 """
 from __future__ import annotations
 
+import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -53,12 +79,32 @@ import numpy as np
 
 # envs and timed steps of each path (the bench.py configurations)
 CARTPOLE = ("CartpoleBalanceBenchmark-v1", 1024, 50)
-PICKCUBE_STATE = ("PickCube-v1", 4096, 50)
-PICKCUBE_RGB = ("PickCube-v1", 2048, 50)
+PICKCUBE_STATE = ("PickCube-v1", 4096, 20)
+PICKCUBE_RGB = ("PickCube-v1", 2048, 20)
+PD_EE = ("PickCube-v1", 4096, 20)
+EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose", "pd_ee_target_delta_pos", "pd_ee_target_delta_pose",
+            "pd_joint_vel")
+PICKCUBE_RGBD = ("PickCube-v1", 2048, 50)
+RGBD_RATIO_4090 = 0.909  # rgb+depth+segmentation / state fps of ManiSkill on an RTX 4090 (BASELINE.md)
+# motion planner cells: (env, envs); the limit is the JAX package's recorded
+# demo success (demos/<env>/mp_<env>.json) less 0.15
+# the longest first: phase 16 runs them in PLANNER_WORKERS processes that
+# share the card, since each is bound by its own host's kernel launches
+PLANNER = (("StackPyramid-v1", 1024), ("LiftPegUpright-v1", 1024), ("PullCubeTool-v1", 1024),
+           ("PlaceSphere-v1", 1024), ("StackCube-v1", 4096), ("PickCube-v1", 1024), ("PullCube-v1", 1024),
+           ("PushCube-v1", 1024))
+PLANNER_WORKERS = 4
+PLANNER_CLI = ("StackCube-v1", 4096)  # run through the CLI, alone, after the shared phase
+PLANNER_RGBD = ("StackCube-v1", 2048)
+# LiftPegUpright's demo json records 24/24, but the JAX package's own planner
+# solves 104/128 = 0.8125 of a batch on the CPU with the f32 solver (and
+# 0.7421875 with its bf16 one; scripts/planner_rates.py jax [--f32-solver]);
+# its limit is that rate less 0.15
+PLANNER_REFERENCE_RATE = {"LiftPegUpright-v1": 0.8125}
 FRANKA = (("FrankaMoveBenchmark-v1", 4096, 20), ("FrankaPickCubeBenchmark-v1", 8192, 20))
 # PPO cells: README.md's recipes (env, envs, rollout steps, epochs, minibatches,
 # iterations run here, total steps of the recipe for the learning-rate decay)
-PPO_STATE = ("PickCube-v1", 4096, 4, 8, 32, 3, 100_000_000)
+PPO_STATE = ("PickCube-v1", 4096, 4, 8, 32, 2, 100_000_000)
 PPO_RGB = ("PushCube-v1", 512, 8, 4, 8, 2, 12_000_000)
 STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
 RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
@@ -111,9 +157,12 @@ def raster_bound_ms(table, counts, height: int, width: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def rerender_check(base, cam_name, n, tr, tiled_inputs, geom_poses, rgb, name):
+def rerender_check(base, cam_name, n, tr, tiled_inputs, geom_poses, rgb, name, depth=None, seg=None):
     """Re-render the current state of the first ``n`` envs through the plain
-    version; returns (inputs, max |1/z| error, seg agreement)."""
+    version: rgb equal, the kernel's segmentation agreeing on at least
+    SEG_AGREE_MIN of the pixels, and, where the obs holds them, the int16
+    depth equal and the segmentation obs agreeing as well. Returns (inputs,
+    max |depth| error of the kernel, seg agreement)."""
     import torch
 
     cam = base._sensors[cam_name]
@@ -132,6 +181,15 @@ def rerender_check(base, cam_name, n, tr, tiled_inputs, geom_poses, rgb, name):
     check(agree >= SEG_AGREE_MIN, f"{name}: seg agreement {agree} < {SEG_AGREE_MIN}")
     rgb_plain = (torch.clamp(rp, 0, 1) * 255).to(torch.uint8)
     check(bool(torch.equal(rgb_plain, rgb[:n])), f"{name}: rgb obs differs from the plain re-render")
+    valid = sp >= 0
+    if depth is not None:  # the camera's int16 millimetres, background 0
+        want = torch.clamp(torch.where(valid, zp, 0.0) * 1000.0, 0, 32767).to(torch.int16)
+        differ = int((want != depth[:n, ..., 0]).sum())
+        check(differ == 0, f"{name}: int16 depth differs from the plain re-render on {differ} px")
+    if seg is not None:
+        seg_agree = (torch.where(valid, sp, 0).to(torch.int16) == seg[:n, ..., 0]).float().mean().item()
+        check(seg_agree >= SEG_AGREE_MIN, f"{name}: segmentation obs agreement {seg_agree} < {SEG_AGREE_MIN}")
+        agree = min(agree, seg_agree)
     return inputs, (zk[:n] - zp).abs().max().item(), agree
 
 
@@ -210,6 +268,277 @@ def evaluate_checkpoint(torch, env, trainer, path, success_min, card):
     print(f"{path} on {base.uid} x{base.num_envs}: greedy success_once {rate:.6f} "
           f"({int(success.sum())}/{base.num_envs}) over 50 steps in {time.perf_counter() - t0:.2f} s {card}")
     check(rate >= success_min, f"{path}: greedy success_once {rate:.4f} < {success_min}")
+
+
+def ee_control_phase(torch, dev, make, card):
+    """Phase 14: the end-effector and joint-velocity modes at 4096 envs."""
+    from maniskill_tpu_torch.utils.timing import cuda_ms, profile_calls, timed_steps
+
+    uid, n_envs, n_steps = PD_EE
+    rates = {}
+    for mode in EE_MODES:
+        t0 = time.perf_counter()
+        env = make(uid, num_envs=n_envs, obs_mode="state", control_mode=mode, device=dev)
+        base = env.unwrapped
+        zero = torch.zeros((n_envs,) + tuple(env.single_action_space.shape), device=dev)
+        env.reset(seed=0)
+        env.step(zero)  # builds the lazy tables (the arm's kinematics, contact signs)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        tcp0 = base.agent.tcp.pose.p.clone()
+        state0 = base.get_state_dict()
+        step_s = timed_steps(env, zero, n_steps)
+        drift = (base.agent.tcp.pose.p - tcp0).norm(dim=-1)
+        data = base.scene.data
+        check(bool(torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()), f"{mode}: state not finite")
+        check(int(data.contact.overflow.max()) == 0, f"{mode}: contact overflow")
+        arm = base.agent.controller.controllers["arm"]
+        arm_zero = zero[:, :-1]
+        ctrl_ms = cuda_ms(lambda: arm.set_action(arm_zero), 5)
+        _, ctrl = profile_calls(lambda: arm.set_action(arm_zero), 1)
+        _, prof = profile_calls(lambda: env.step(zero), 1)
+        check(prof["syncs"] == 0, f"{mode}: {prof['syncs']} stream/event syncs in a control step")
+        check(prof["h2d_copies"] == 0, f"{mode}: {prof['h2d_copies']} host-to-device copies in a control step")
+        rates[mode] = n_envs * n_steps / step_s
+        print(f"{mode} {uid} x{n_envs}: built and warmed up in {built_s:.2f} s; {rates[mode]:.1f} env-steps/s "
+              f"({step_s / n_steps * 1e3:.2f} ms/step, eager); arm controller (IK for pd_ee_*) "
+              f"{ctrl_ms:.3f} ms, {ctrl['launches']:.0f} launches, {ctrl['syncs']:.0f} syncs per control step; "
+              f"step profile {prof['launches']:.0f} launches, {prof['syncs']:.0f} stream/event syncs, "
+              f"{prof['h2d_copies']:.0f} host-to-device copies, device kernels {prof['device_kernel_ms']:.3f} ms "
+              f"of {prof['wall_ms']:.3f} ms (idle {prof['device_idle_share']:.3f}); TCP drift over "
+              f"{n_steps} zero-action steps: max {float(drift.max()) * 1e3:.3f} mm, mean "
+              f"{float(drift.mean()) * 1e3:.3f} mm {card}")
+        if mode == "pd_ee_delta_pos":
+            cmd = zero.clone()
+            cmd[:, 0] = 0.3  # 3 cm per step along the root's +x
+            p0 = base.agent.tcp.pose.p.clone()
+            for _ in range(5):
+                env.step(cmd)
+            d = base.agent.tcp.pose.p - p0
+            cos = d[:, 0] / d.norm(dim=-1).clamp(min=1e-9)
+            check(float(cos.min()) >= 0.99, f"{mode}: +x command moved the TCP off +x (cosine {float(cos.min()):.4f})")
+            print(f"{mode}: 5 steps of +3 cm x moved the TCP {float(d[:, 0].mean()) * 1e3:.2f} mm along x "
+                  f"(mean), cosine to the command min {float(cos.min()):.6f} {card}")
+        if mode == "pd_ee_target_delta_pose":
+            # the same 16 envs from the same state on the CPU: the card drifts
+            # as the CPU does (the zero-action drift is the reference's own)
+            n = 16
+            cpu = make(uid, num_envs=n, obs_mode="state", control_mode=mode, device="cpu")
+            def first_envs(x):
+                return {k: first_envs(v) for k, v in x.items()} if isinstance(x, dict) else x[:n].cpu()
+
+            sub = first_envs(state0)
+            cpu.reset(seed=0)
+            cpu.unwrapped.set_state_dict(sub)  # after the reset, which sets the targets to qpos
+            for _ in range(n_steps):
+                cpu.step(torch.zeros(n, zero.shape[1]))
+            cpu_drift = (cpu.unwrapped.agent.tcp.pose.p - tcp0[:n].cpu()).norm(dim=-1)
+            gap = float((drift[:n].cpu() - cpu_drift).abs().max())
+            check(gap <= 1e-4, f"{mode}: zero-action TCP drift differs from the CPU's by {gap:.2e} m")
+            print(f"{mode}: zero-action TCP drift of 16 envs matches the CPU's within {gap:.2e} m "
+                  f"(max {float(cpu_drift.max()) * 1e3:.3f} mm on the CPU) {card}")
+        del env, base, data
+    return rates
+
+
+def rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 15: PickCube rgb+depth+segmentation against state at 2048 envs.
+    The two envs take turns step by step (in the order AB BA AB ...), each
+    step timed alone, so that the host's drift within the call falls on both
+    alike; the ratio is the median of the pairs' (10-step blocks read
+    0.91-1.11 within one call on an H100). Returns the kernel's max depth
+    error against the plain version."""
+    import statistics
+
+    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+
+    uid, n_envs, n_steps = PICKCUBE_RGBD
+    kernel = tr.KERNEL
+    modes = ("state", "rgb+depth+segmentation")
+    envs = {}
+    action = torch.zeros(n_envs, 8, device=dev)
+    for obs_mode in modes:
+        env = make(uid, num_envs=n_envs, obs_mode=obs_mode, control_mode="pd_joint_delta_pos", device=dev)
+        env.reset(seed=0)
+        for _ in range(3):
+            env.step(action)
+        envs[obs_mode] = env
+    kernel.launches = 0
+    for env in envs.values():
+        env.reset(seed=0)
+    step_s = {m: [] for m in modes}
+    for i in range(n_steps):
+        for obs_mode in modes if i % 2 == 0 else modes[::-1]:
+            step_s[obs_mode].append(timed_steps(envs[obs_mode], action, 1))
+    launches = kernel.launches
+    pair_ratios = [state / rgbd for state, rgbd in zip(step_s["state"], step_s["rgb+depth+segmentation"])]
+    ratio = statistics.median(pair_ratios)
+    for obs_mode in modes:
+        base = envs[obs_mode].unwrapped
+        q1, med, q3 = statistics.quantiles(step_s[obs_mode], n=4)
+        print(f"pickcube {obs_mode} x{n_envs}: {n_envs * n_steps / sum(step_s[obs_mode]):.1f} env-steps/s "
+              f"({sum(step_s[obs_mode]) / n_steps * 1e3:.2f} ms/step, eager; median step {med * 1e3:.2f} ms, "
+              f"quartiles {q1 * 1e3:.2f}-{q3 * 1e3:.2f} ms) {card}")
+        check(int(base.scene.data.contact.overflow.max()) == 0, f"pickcube {obs_mode}: contact overflow")
+    base = envs.pop("rgb+depth+segmentation").unwrapped
+    del envs
+    check(launches == 1 + n_steps, f"pickcube rgbd kernel launches {launches} != resets + steps {1 + n_steps}")
+    obs = base.get_obs()
+    cam = obs["sensor_data"]["base_camera"]
+    seg = cam["segmentation"]
+    robot_ids = torch.tensor([link.per_scene_id for link in base.agent.robot.links], device=dev)
+    check(bool((seg == base.cube.per_scene_id).any()), "pickcube rgbd: the cube's segmentation id is in no frame")
+    check(bool(torch.isin(seg, robot_ids).any()), "pickcube rgbd: no robot link's segmentation id is in any frame")
+    inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, cam["rgb"],
+                                        "pickcube rgbd", depth=cam["depth"], seg=seg)
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
+    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+    paths[f"pickcube_rgbd_seg_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                               bound_by=bound_by)
+    print(f"pickcube rgbd: {n_steps} steps x {n_envs} envs, kernel launches {launches}, dropped 0, last frame "
+          f"of 16 envs re-rendered: int16 depth equal, seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), "
+          f"rgb equal; the cube's and the robot's ids present {card}")
+    q1, _, q3 = statistics.quantiles(pair_ratios, n=4)
+    print(f"pickcube rgb+depth+segmentation / state rate ratio @{n_envs}: {ratio:.4f}, the median of "
+          f"{len(pair_ratios)} alternating step pairs (quartiles {q1:.4f}-{q3:.4f}, ratio of the sums "
+          f"{sum(step_s['state']) / sum(step_s['rgb+depth+segmentation']):.4f}; ManiSkill on an RTX 4090: "
+          f"{RGBD_RATIO_4090}, for comparison) {card}")
+    print(f"raster kernel (pickcube rgbd, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) {card}")
+    return err
+
+
+def recorded_rate(uid: str) -> float:
+    with open(f"demos/{uid}/mp_{uid}.json") as f:
+        episodes = json.load(f)["episodes"]
+    return sum(e["success"] for e in episodes) / len(episodes)
+
+
+def planner_state_worker(uid: str, n_envs: int, card: str) -> float:
+    """Phase 16's batch of one task in a process of its own: its success
+    rate (the checks of ``planner_run`` end the process on a failure)."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    note = f"{card} (one of {PLANNER_WORKERS} planner processes sharing the card)"
+    return planner_run(torch, torch.device("cuda"), make, note, uid, n_envs, "state", seed=0)[1]
+
+
+def planner_run(torch, dev, make, card, uid, n_envs, obs_mode, seed, kernel=None):
+    """One batch of the scripted solution: (env, success rate). Host syncs
+    are counted with torch's sync debug mode, and the kernel's launches
+    from the batch's reset on, when given the kernel."""
+    import warnings
+
+    from maniskill_tpu_torch.examples.motionplanning.panda_solver import PandaMotionPlanningSolver
+    from maniskill_tpu_torch.examples.motionplanning.solutions import SOLUTIONS
+
+    env = make(uid, num_envs=n_envs, obs_mode=obs_mode, control_mode="pd_joint_pos", device=dev)
+    base = env.unwrapped
+    # one-time tables (the arm's kinematics, the contact queries' signs) are
+    # copied to the device before the count: a solver, one step, a reset
+    PandaMotionPlanningSolver(env)
+    env.reset(seed=seed)
+    env.step(torch.zeros((n_envs,) + tuple(env.single_action_space.shape), device=dev))
+    if kernel is not None:
+        kernel.launches = 0
+    env.reset(seed=seed)
+    torch.cuda.synchronize()
+    PandaMotionPlanningSolver.moves = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            info = SOLUTIONS[uid](env)[-1]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sites = collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
+                                if "called a synchronizing CUDA operation" in str(w.message))
+    syncs = sum(sites.values())
+    moves = PandaMotionPlanningSolver.moves
+    steps = int(base.elapsed_steps[0])
+    rate = float(info["success"].float().mean())
+    check(int(base.scene.data.contact.overflow.max()) == 0, f"planner {uid}: contact overflow")
+    print(f"planner {uid} {obs_mode} x{n_envs}: success {rate:.6f} ({int(info['success'].sum())}/{n_envs}), "
+          f"{steps} control steps, {moves} moves, {syncs / max(moves, 1):.2f} syncs per move, {wall:.2f} s, "
+          f"{n_envs * steps / wall:.1f} env-steps/s {card}")
+    check(syncs == moves, f"planner {uid}: {syncs} host syncs in {moves} moves (one per move expected), "
+                          f"at {dict(sites)}")
+    return env, rate
+
+
+def planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phases 16-17. Returns the kernel's max depth error on the planner's
+    rgb path."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(PLANNER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {uid: pool.submit(planner_state_worker, uid, n_envs, card) for uid, n_envs in PLANNER}
+        rates = {uid: f.result() for uid, f in futures.items()}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"planner state: {len(PLANNER)} tasks in {PLANNER_WORKERS} processes in "
+          f"{time.perf_counter() - t0:.2f} s {card}")
+    limits = {uid: min(recorded_rate(uid), PLANNER_REFERENCE_RATE.get(uid, 1.0)) - 0.15 for uid, _ in PLANNER}
+    for uid, _ in PLANNER:
+        check(rates[uid] >= limits[uid], f"planner {uid}: success {rates[uid]:.4f} < {limits[uid]:.4f}")
+    # the CLI a user runs, alone on the card: one batch of StackCube @4096
+    uid, n_envs = PLANNER_CLI
+    cmd = [sys.executable, "-m", "maniskill_tpu_torch.examples.motionplanning.run", "--env-id", uid,
+           "--num-envs", str(n_envs)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"planner CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    m = re.search(rf"{uid} batch 0: success ([0-9.]+) \((\d+)/{n_envs} cumulative\) in ([0-9.]+) s, "
+                  r"(\d+) control steps, ([0-9.]+) env-steps/s", out.stdout)
+    check(m is not None, f"planner CLI printed no success line: {out.stdout[-2000:]}")
+    cli_rate = int(m.group(2)) / n_envs
+    check(cli_rate >= limits[uid], f"planner CLI {uid}: success {cli_rate:.4f} < {limits[uid]:.4f}")
+    print(f"planner CLI ({' '.join(cmd[1:])}), alone on the card: {m.group(0)}; phase 16's batch of the same "
+          f"seed {rates[uid]:.6f} {card}")
+    uid, n_envs = PLANNER_RGBD
+    kernel = tr.KERNEL
+    env, rate = planner_run(torch, dev, make, card, uid, n_envs, "rgb+depth+segmentation", seed=1, kernel=kernel)
+    base = env.unwrapped
+    launches = kernel.launches
+    steps = int(base.elapsed_steps[0])
+    check(launches == 1 + steps, f"planner rgbd kernel launches {launches} != resets + steps {1 + steps}")
+    check(rate >= rates[uid] - 0.02, f"planner rgbd {uid}: success {rate:.4f} < state's {rates[uid]:.4f} - 0.02")
+    cam = base.get_obs()["sensor_data"]["base_camera"]
+    for name in ("cubeA", "cubeB"):
+        sid = base.scene.actors[name].per_scene_id
+        check(bool((cam["segmentation"] == sid).any()), f"planner rgbd: {name}'s segmentation id is in no frame")
+    inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, cam["rgb"],
+                                        "planner rgbd", depth=cam["depth"], seg=cam["segmentation"])
+    from maniskill_tpu_torch.utils.timing import cuda_ms
+
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
+    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+    paths[f"planner_stackcube_rgbd_seg_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms,
+                                                        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"planner rgbd {uid} x{n_envs}: kernel launches {launches} == resets + steps, last frame of 16 envs "
+          f"re-rendered: int16 depth equal, seg agreement {agree:.6f}, rgb equal; both cubes' ids present; "
+          f"success {rate:.6f} vs state {rates[uid]:.6f} {card}")
+    print(f"raster kernel (planner stackcube rgbd, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain "
+          f"{p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) {card}")
+    return err
 
 
 def main(device: str = "cuda"):
@@ -484,6 +813,15 @@ def main(device: str = "cuda"):
           f"faces in the scene {inputs[0].shape[1]}")
     evaluate_checkpoint(torch, env, trainer, RGB_CKPT, RGB_SUCCESS_MIN, card)
     del env, trainer, inputs, table, idx, counts, obs
+
+    # ---- phase 14: end-effector and joint-velocity control ----------------
+    ee_control_phase(torch, dev, make, card)
+
+    # ---- phase 15: PickCube rgb+depth+segmentation vs state ----------------
+    max_err = max(max_err, rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+
+    # ---- phases 16-17: the batched motion planner ----------------------------
+    max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

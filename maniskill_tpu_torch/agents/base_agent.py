@@ -93,8 +93,8 @@ class BaseAgent:
         if control_mode not in self._controller_configs:
             # never fall back to another mode
             raise NotImplementedError(
-                f"control mode {control_mode!r} of {self.uid} is not ported; "
-                f"ported: {self.supported_control_modes}"
+                f"{self.uid} has no control mode {control_mode!r}; "
+                f"its modes: {self.supported_control_modes}"
             )
         configs = self._controller_configs[control_mode]
         balance_passive_force = True

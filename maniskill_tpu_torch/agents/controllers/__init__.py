@@ -11,10 +11,20 @@ from .pd_joint_pos import (
     PDJointPosMimicControllerConfig,
 )
 from .passive_controller import PassiveController, PassiveControllerConfig
+from .pd_ee_pose import (
+    PDEEPosController,
+    PDEEPosControllerConfig,
+    PDEEPoseController,
+    PDEEPoseControllerConfig,
+)
+from .pd_joint_vel import PDJointVelController, PDJointVelControllerConfig
 
 __all__ = [
     "BaseController", "CombinedController", "ControllerConfig", "DictController",
     "PDJointPosController", "PDJointPosControllerConfig",
     "PDJointPosMimicController", "PDJointPosMimicControllerConfig",
     "PassiveController", "PassiveControllerConfig",
+    "PDEEPosController", "PDEEPosControllerConfig",
+    "PDEEPoseController", "PDEEPoseControllerConfig",
+    "PDJointVelController", "PDJointVelControllerConfig",
 ]

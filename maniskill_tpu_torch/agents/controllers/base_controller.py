@@ -146,3 +146,6 @@ class CombinedController(DictController):
         for uid, c in self.controllers.items():
             lo, hi = self.action_mapping[uid]
             c.set_action(action[..., lo:hi])
+
+    def from_action_dict(self, action_dict: Dict) -> torch.Tensor:
+        return torch.cat([action_dict[uid] for uid in self.controllers], -1)

@@ -40,20 +40,23 @@ class PDJointPosControllerConfig(ControllerConfig):
 class PDJointPosController(BaseController):
     config: PDJointPosControllerConfig
 
-    def _initialize_action_space(self):
+    def _action_bounds(self):
+        """(low, high) of the unnormalized action."""
         n = len(self.config.joint_names)
         if self.config.use_delta or self.config.lower is not None:
             lo = np.broadcast_to(np.asarray(self.config.lower, np.float32), (n,))
             hi = np.broadcast_to(np.asarray(self.config.upper, np.float32), (n,))
-        else:
-            # absolute mode: limits come from the joint limits
-            lims = self._joint_limits()
-            lo, hi = lims[:, 0], lims[:, 1]
+            return lo, hi
+        # absolute mode: limits come from the joint limits
+        lims = self._joint_limits()
+        return lims[:, 0], lims[:, 1]
+
+    def _initialize_action_space(self):
         lims = self._joint_limits()
         dev = self.scene.device
         self._lim_lo = torch.as_tensor(lims[:, 0], device=dev)
         self._lim_hi = torch.as_tensor(lims[:, 1], device=dev)
-        self._set_action_bounds(lo, hi)
+        self._set_action_bounds(*self._action_bounds())
 
     def _set_action_bounds(self, lo, hi):
         """Action limits: host copies for the space, device copies for the

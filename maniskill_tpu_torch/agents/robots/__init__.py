@@ -1,4 +1,4 @@
 """Robots of the port; importing this package registers them."""
-from .panda import Panda
+from .panda import Panda, PandaWristCam
 
-__all__ = ["Panda"]
+__all__ = ["Panda", "PandaWristCam"]

@@ -1,1 +1,2 @@
 from .panda import Panda
+from .panda_wristcam import PandaWristCam

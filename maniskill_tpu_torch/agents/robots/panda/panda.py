@@ -3,8 +3,9 @@ maniskill_tpu/agents/robots/panda/panda.py).
 
 Kinematics and inertial constants are the public Franka values; collision
 shapes are primitives (capsules for the arm links, boxes for the hand and
-fingers). Of the reference's control modes the joint-position ones are
-ported; the end-effector and joint-velocity modes raise.
+fingers). All eight control modes of the reference's Panda are here: joint
+position (absolute, delta, target delta), joint velocity, and end-effector
+position or pose deltas (current or target based) through batched IK.
 """
 from __future__ import annotations
 
@@ -16,7 +17,13 @@ from ....physics.types import BOX, CAPSULE, HINGE, SLIDE
 from ....utils import common
 from ....utils.geometry.rotation_conversions import quaternion_apply
 from ...base_agent import BaseAgent, Keyframe
-from ...controllers import PDJointPosControllerConfig, PDJointPosMimicControllerConfig
+from ...controllers import (
+    PDEEPosControllerConfig,
+    PDEEPoseControllerConfig,
+    PDJointPosControllerConfig,
+    PDJointPosMimicControllerConfig,
+    PDJointVelControllerConfig,
+)
 from ...registration import register_agent
 
 
@@ -205,6 +212,17 @@ class Panda(BaseAgent):
         arm_pd_joint_target_delta_pos = PDJointPosControllerConfig(
             **arm_common, lower=-0.1, upper=0.1, use_delta=True, use_target=True
         )
+        ee = dict(**arm_common, pos_lower=-0.1, pos_upper=0.1, ee_link="panda_hand_tcp", use_delta=True)
+        arm_pd_ee_delta_pos = PDEEPosControllerConfig(**ee)
+        arm_pd_ee_target_delta_pos = PDEEPosControllerConfig(**ee, use_target=True)
+        arm_pd_ee_delta_pose = PDEEPoseControllerConfig(**ee, rot_lower=-0.1, rot_upper=0.1)
+        arm_pd_ee_target_delta_pose = PDEEPoseControllerConfig(
+            **ee, rot_lower=-0.1, rot_upper=0.1, use_target=True
+        )
+        arm_pd_joint_vel = PDJointVelControllerConfig(
+            joint_names=ARM_JOINT_NAMES, lower=-1.0, upper=1.0,
+            damping=self.arm_damping, force_limit=self.arm_force_limit,
+        )
         gripper_pd_joint_pos = PDJointPosMimicControllerConfig(
             joint_names=GRIPPER_JOINT_NAMES,
             lower=-0.01, upper=0.04,
@@ -212,13 +230,17 @@ class Panda(BaseAgent):
             damping=self.gripper_damping,
             force_limit=self.gripper_force_limit,
         )
-        return dict(
-            pd_joint_delta_pos=dict(arm=arm_pd_joint_delta_pos, gripper=gripper_pd_joint_pos),
-            pd_joint_pos=dict(arm=arm_pd_joint_pos, gripper=gripper_pd_joint_pos),
-            pd_joint_target_delta_pos=dict(
-                arm=arm_pd_joint_target_delta_pos, gripper=gripper_pd_joint_pos
-            ),
+        arms = dict(
+            pd_joint_delta_pos=arm_pd_joint_delta_pos,
+            pd_joint_pos=arm_pd_joint_pos,
+            pd_joint_target_delta_pos=arm_pd_joint_target_delta_pos,
+            pd_joint_vel=arm_pd_joint_vel,
+            pd_ee_delta_pos=arm_pd_ee_delta_pos,
+            pd_ee_delta_pose=arm_pd_ee_delta_pose,
+            pd_ee_target_delta_pos=arm_pd_ee_target_delta_pos,
+            pd_ee_target_delta_pose=arm_pd_ee_target_delta_pose,
         )
+        return {mode: dict(arm=arm, gripper=gripper_pd_joint_pos) for mode, arm in arms.items()}
 
     def _after_init(self):
         self.tcp = self.robot.links_map["panda_hand_tcp"]

@@ -1,3 +1,13 @@
-from .common import build_box, build_cube, build_cylinder, build_red_white_target, build_sphere
+from .common import (
+    build_box,
+    build_cube,
+    build_cylinder,
+    build_red_white_target,
+    build_sphere,
+    build_twocolor_peg,
+)
 
-__all__ = ["build_box", "build_cube", "build_cylinder", "build_red_white_target", "build_sphere"]
+__all__ = [
+    "build_box", "build_cube", "build_cylinder", "build_red_white_target",
+    "build_sphere", "build_twocolor_peg",
+]

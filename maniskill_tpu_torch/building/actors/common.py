@@ -76,6 +76,28 @@ def build_red_white_target(
     return _build(builder, name, body_type)
 
 
+def build_twocolor_peg(
+    scene, length, width, color_1, color_2, name: str,
+    body_type: str = "dynamic", add_collision: bool = True, initial_pose=None,
+):
+    """A box peg of half-sizes (length, width, width), its two halves along
+    local x drawn in two colours."""
+    builder = scene.create_actor_builder()
+    if add_collision:
+        builder.add_box_collision(half_size=[length, width, width])
+    builder.add_box_visual(
+        pose=np.array([-length / 2, 0, 0, 1, 0, 0, 0]),
+        half_size=[length / 2, width, width], color=color_1,
+    )
+    builder.add_box_visual(
+        pose=np.array([length / 2, 0, 0, 1, 0, 0, 0]),
+        half_size=[length / 2, width, width], color=color_2,
+    )
+    if initial_pose is not None:
+        builder.set_initial_pose(initial_pose)
+    return _build(builder, name, body_type)
+
+
 def _build(builder, name, body_type):
     if body_type == "dynamic":
         return builder.build(name)

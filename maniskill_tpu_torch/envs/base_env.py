@@ -24,7 +24,7 @@ from ..agents.registration import get_agent_class
 from ..structs.types import SimConfig, merge_sim_config
 from ..utils import common, gym_utils
 from .scene import ManiSkillScene
-from .utils.observations import parse_obs_mode_to_struct
+from .utils.observations import parse_obs_mode_to_struct, sensor_data_to_pointcloud
 from .utils.randomization.batched_rng import BatchedRNG
 
 
@@ -34,7 +34,7 @@ class BaseEnv:
     SUPPORTED_OBS_MODES = ("state", "state_dict", "none", "rgb", "depth",
                            "segmentation", "rgbd", "rgb+depth",
                            "rgb+depth+segmentation", "rgb+segmentation",
-                           "depth+segmentation")
+                           "depth+segmentation", "pointcloud")
     SUPPORTED_REWARD_MODES = ("normalized_dense", "dense", "sparse", "none")
 
     agent: BaseAgent
@@ -193,6 +193,8 @@ class BaseEnv:
         from ..sensors.camera import Camera, parse_camera_configs, update_camera_configs_from_dict
 
         configs = parse_camera_configs(self._default_sensor_configs)
+        # cameras the robot carries (a wrist camera)
+        configs.update(parse_camera_configs(getattr(self.agent, "_sensor_configs", [])))
         update_camera_configs_from_dict(configs, self._sensor_config_overrides)
         self._sensor_configs = configs
         self._sensors = {name: Camera(cfg, self.scene) for name, cfg in configs.items()}
@@ -371,12 +373,15 @@ class BaseEnv:
                 hidden_actors=self._hidden_objects,
             )
             params[name] = sensor.get_params()
-        return dict(
+        obs = dict(
             agent=self._get_obs_agent(),
             extra=self._get_obs_extra(info),
             sensor_param=params,
             sensor_data=sensor_data,
         )
+        if self.obs_mode == "pointcloud":
+            obs = sensor_data_to_pointcloud(obs)
+        return obs
 
     # ==================================================================
     # rewards

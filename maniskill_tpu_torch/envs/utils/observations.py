@@ -1,5 +1,5 @@
-"""Obs-mode parsing (counterpart of maniskill_tpu/envs/utils/observations.py;
-the pointcloud conversion is not ported yet).
+"""Obs-mode parsing and the pointcloud conversion (counterpart of
+maniskill_tpu/envs/utils/observations.py).
 
 Obs modes compose with '+' (e.g. "rgb+depth+segmentation"); "rgbd" is an
 alias for "rgb+depth".
@@ -7,6 +7,8 @@ alias for "rgb+depth".
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 MODALITIES = ("rgb", "depth", "segmentation", "position", "normal", "albedo")
 
@@ -37,3 +39,28 @@ def parse_obs_mode_to_struct(obs_mode: str) -> Dict[str, bool]:
             raise ValueError(f"unknown obs modality {part!r} in {obs_mode!r}")
     struct["use_state"] = struct["state"]
     return struct
+
+
+def sensor_data_to_pointcloud(obs: dict) -> dict:
+    """Merge every camera's position map into one world-frame pointcloud:
+    millimetres to metres, the camera-to-world (OpenGL) transform, then the
+    cameras concatenated. ``xyzw``'s w is 1 on geometry and 0 on the
+    background; rgb and segmentation ride along per point."""
+    sensor_data = obs.pop("sensor_data")
+    params = obs.pop("sensor_param")
+    pcds = {"xyzw": [], "rgb": [], "segmentation": []}
+    for name, data in sensor_data.items():
+        pos = data["position"].to(torch.float32) / 1000.0
+        B = pos.shape[0]
+        valid = data.get("position_valid")
+        if valid is None:
+            valid = torch.ones(pos.shape[:3], dtype=torch.bool, device=pos.device)
+        c2w = params[name]["cam2world_gl"]  # (B, 4, 4)
+        pw = torch.einsum("bij,bnj->bni", c2w[:, :3, :3], pos.reshape(B, -1, 3)) + c2w[:, None, :3, 3]
+        pcds["xyzw"].append(torch.cat([pw, valid.reshape(B, -1, 1).to(torch.float32)], -1))
+        if "rgb" in data:
+            pcds["rgb"].append(data["rgb"].reshape(B, -1, 3))
+        if "segmentation" in data:
+            pcds["segmentation"].append(data["segmentation"].reshape(B, -1, 1))
+    obs["pointcloud"] = {k: torch.cat(v, 1) for k, v in pcds.items() if v}
+    return obs

@@ -111,13 +111,13 @@ class BatchedRNG:
     def choice(self, n: int, size=()) -> torch.Tensor:
         return self.randint(0, n, size)
 
-    def quaternions(self, lock_x=False, lock_y=False, lock_z=False) -> torch.Tensor:
+    def quaternions(self, lock_x=False, lock_y=False, lock_z=False, bounds=(0.0, 2 * math.pi)) -> torch.Tensor:
         """(B, 4) random unit wxyz quaternions; locking x and y gives a
-        uniform yaw about z (the reference's formulas)."""
+        uniform yaw about z in ``bounds`` (the reference's formulas)."""
         from ....utils.geometry import rotation_conversions as rc
 
         if lock_x and lock_y and not lock_z:
-            ang = self.uniform(0.0, 2 * math.pi)
+            ang = self.uniform(*bounds)
             zeros = torch.zeros_like(ang)
             return rc.axis_angle_to_quaternion(torch.stack([zeros, zeros, ang], -1))
         q = self.normal(size=(4,))

@@ -1,0 +1,262 @@
+"""Scripted motion-planning solutions (counterpart of
+maniskill_tpu/examples/motionplanning/solutions.py). Batched: one scripted
+pass steers every env of the batch, each toward its own goal poses.
+
+Each solution returns the last env step's (obs, reward, terminated,
+truncated, info).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...utils.geometry import rotation_conversions as rc
+from .panda_solver import PandaMotionPlanningSolver, device_vector
+
+
+def _pose(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([p, q.expand(p.shape[:-1] + (4,))], -1)
+
+
+def _add(p: torch.Tensor, cols, value) -> torch.Tensor:
+    out = p.clone()
+    out[:, cols] = out[:, cols] + value
+    return out
+
+
+def _set(p: torch.Tensor, cols, value) -> torch.Tensor:
+    out = p.clone()
+    out[:, cols] = value
+    return out
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-8)
+
+
+def _yawed_down_q(yaw: torch.Tensor, down_q: torch.Tensor) -> torch.Tensor:
+    """The top-down grasp with the closing axis turned by ``yaw`` (B,) about
+    world z: (B, 4)."""
+    zero = torch.zeros_like(yaw)
+    qz = torch.stack([torch.cos(yaw / 2), zero, zero, torch.sin(yaw / 2)], -1)
+    return rc.quaternion_multiply(qz, down_q.expand(qz.shape))
+
+
+def _cube_yaw(q: torch.Tensor) -> torch.Tensor:
+    """A cube's yaw folded to the nearest face-aligned grip angle in
+    [-pi/4, pi/4)."""
+    yaw = torch.atan2(2 * (q[:, 0] * q[:, 3] + q[:, 1] * q[:, 2]), 1 - 2 * (q[:, 2] ** 2 + q[:, 3] ** 2))
+    return (yaw + math.pi / 4) % (math.pi / 2) - math.pi / 4
+
+
+def solve_push_cube(env):
+    """Park behind the cube, then push it through the goal."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    down = mp.down_q
+    mp.close_gripper(steps=3)
+    cube_p = base.obj.pose.p
+    goal_p = base.goal_region.pose.p
+    push_dir = _unit(goal_p[:, :2] - cube_p[:, :2])
+    lift = 0.02
+    behind = _add(_add(cube_p, slice(0, 2), -push_dir * 0.08), 2, lift)
+    mp.move_to_pose(_pose(behind, down), refine_steps=4)
+    reach = torch.linalg.vector_norm(goal_p[:, :2] - cube_p[:, :2], dim=-1, keepdim=True)
+    through = _add(_add(cube_p, slice(0, 2), push_dir * reach), 2, lift)
+    return mp.move_to_pose(_pose(through, down), refine_steps=6)
+
+
+def solve_pick_cube(env):
+    """Hover, descend, grasp, carry the cube to the goal."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    down = mp.down_q
+    mp.open_gripper(steps=3)
+    cube_p = base.cube.pose.p
+    mp.move_to_pose(_pose(_add(cube_p, 2, 0.08), down), refine_steps=3)
+    mp.move_to_pose(_pose(_add(cube_p, 2, 0.015), down), refine_steps=5)
+    mp.close_gripper(steps=8)
+    return mp.move_to_pose(_pose(base.goal_site.pose.p, down), refine_steps=10)
+
+
+def solve_pull_cube(env):
+    """Hook behind the cube with a closed gripper and drag it onto the
+    goal."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    down = mp.down_q
+    mp.close_gripper(steps=3)
+    cube_p = base.obj.pose.p
+    goal_p = base.goal_region.pose.p
+    d = _unit(goal_p[:, :2] - cube_p[:, :2])
+    mp.move_to_pose(_pose(_set(_add(cube_p, slice(0, 2), -d * 0.06), 2, 0.10), down), refine_steps=2)
+    mp.move_to_pose(_pose(_set(_add(cube_p, slice(0, 2), -d * 0.055), 2, 0.02), down), refine_steps=3)
+    target = _set(_add(goal_p, slice(0, 2), -d * 0.04), 2, 0.02)
+    return mp.move_to_pose(_pose(target, down), refine_steps=6)
+
+
+def solve_stack_cube(env):
+    """Grasp A, lift, align above B by the grasp's measured offset, let go."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    down = mp.down_q
+    mp.open_gripper(steps=3)
+    a_p = base.cubeA.pose.p
+    mp.move_to_pose(_pose(_add(a_p, 2, 0.08), down), refine_steps=3)
+    mp.move_to_pose(_pose(_add(a_p, 2, 0.015), down), refine_steps=5)
+    mp.close_gripper(steps=8)
+    mp.move_to_pose(_pose(_set(a_p, 2, 0.12), down), refine_steps=3)
+    # move the TCP by (B's top - A now)
+    target_a = _add(base.cubeB.pose.p, 2, 0.04 + 0.001)
+    place = base.agent.tcp.pose.p + (target_a - base.cubeA.pose.p)
+    mp.move_to_pose(_pose(place, down), refine_steps=6)
+    return mp.open_gripper(steps=6)
+
+
+def solve_place_sphere(env):
+    """Pick the sphere and set it into the bin."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    down = mp.down_q
+    mp.open_gripper(steps=3)
+    r = float(base.radius)
+    s_p = base.obj.pose.p
+    mp.move_to_pose(_pose(_add(s_p, 2, 0.08), down), refine_steps=3)
+    mp.move_to_pose(_pose(_set(s_p, 2, r + 0.002), down), refine_steps=5)
+    mp.close_gripper(steps=8)
+    mp.move_to_pose(_pose(_set(s_p, 2, 0.12), down), refine_steps=3)
+    drop = _add(base.bin.pose.p, 2, float(base.block_half_size[0]) + r + 0.02)
+    mp.move_to_pose(_pose(drop, down), refine_steps=6)
+    return mp.open_gripper(steps=8)
+
+
+def solve_stack_pyramid(env):
+    """Put A flush beside B, then C on top of both. Grasps align with each
+    cube's faces; placements hover above the target before descending, so
+    the neighbours are not clipped on the way."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    half = 0.02
+
+    # 1) grasp A face-aligned
+    mp.open_gripper(steps=3)
+    a_p = base.cubeA.pose.p
+    qa = _yawed_down_q(_cube_yaw(base.cubeA.pose.q), mp.down_q)
+    mp.move_to_pose(_pose(_add(a_p, 2, 0.08), qa), refine_steps=3)
+    mp.move_to_pose(_pose(_add(a_p, 2, 0.015), qa), refine_steps=5)
+    mp.close_gripper(steps=8)
+    mp.move_to_pose(_pose(_set(a_p, 2, 0.12), qa), refine_steps=2)
+
+    # 2) drop A with ~0.8 cm of clearance beside B, then push it flush (the
+    # push stops against B's face, which removes the drop's spread)
+    b_p = base.cubeB.pose.p
+    a_now = base.cubeA.pose.p
+    d = _unit(a_now[:, :2] - b_p[:, :2])
+    target_a = _set(_add(b_p, slice(0, 2), d * (2 * half + 0.008)), 2, half + 0.001)
+    hover = base.agent.tcp.pose.p + (target_a - a_now)
+    mp.move_to_pose(_pose(_add(hover, 2, 0.05), qa), refine_steps=3)
+    place = base.agent.tcp.pose.p + (target_a - base.cubeA.pose.p)
+    mp.move_to_pose(_pose(place, qa), refine_steps=6)
+    mp.open_gripper(steps=5)
+    mp.move_to_pose(_pose(_add(base.agent.tcp.pose.p, 2, 0.10), qa), refine_steps=2)
+
+    # the push: the closed gripper behind A (away from B), toward B until the
+    # faces touch
+    mp.close_gripper(steps=3)
+    a_now = base.cubeA.pose.p
+    d2 = a_now[:, :2] - base.cubeB.pose.p[:, :2]
+    dist = torch.linalg.vector_norm(d2, dim=-1, keepdim=True)
+    d2n = d2 / (dist + 1e-8)
+    behind = _set(_add(a_now, slice(0, 2), d2n * 0.052), 2, half)
+    mp.move_to_pose(_pose(_set(behind, 2, 0.09), qa), refine_steps=2)
+    mp.move_to_pose(_pose(behind, qa), refine_steps=3)
+    push_to = _add(behind, slice(0, 2), -d2n * (dist - (2 * half + 0.001)))
+    mp.move_to_pose(_pose(push_to, qa), refine_steps=5)
+    mp.move_to_pose(_pose(_set(push_to, 2, 0.12), qa), refine_steps=2)
+    mp.open_gripper(steps=3)
+
+    # 3) grasp C face-aligned, hover over the A-B seam, descend, let go
+    c_p = base.cubeC.pose.p
+    qc = _yawed_down_q(_cube_yaw(base.cubeC.pose.q), mp.down_q)
+    mp.move_to_pose(_pose(_add(c_p, 2, 0.08), qc), refine_steps=3)
+    mp.move_to_pose(_pose(_add(c_p, 2, 0.015), qc), refine_steps=5)
+    mp.close_gripper(steps=8)
+    mp.move_to_pose(_pose(_set(c_p, 2, 0.14), qc), refine_steps=2)
+    mid = (base.cubeA.pose.p[:, :2] + base.cubeB.pose.p[:, :2]) / 2
+    target_c = torch.cat([mid, torch.full_like(mid[:, :1], 3 * half + 0.002)], -1)
+    hover_c = base.agent.tcp.pose.p + (target_c - base.cubeC.pose.p)
+    mp.move_to_pose(_pose(_add(hover_c, 2, 0.05), qc), refine_steps=3)
+    place_c = base.agent.tcp.pose.p + (target_c - base.cubeC.pose.p)
+    mp.move_to_pose(_pose(place_c, qc), refine_steps=6)
+    return mp.open_gripper(steps=8)
+
+
+def solve_lift_peg_upright(env):
+    """Grasp the lying peg across its axis, lift, turn the wrist 90 degrees
+    so the peg points up, lower it to the table, let go."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    down = mp.down_q
+    mp.open_gripper(steps=3)
+    hl = float(base.peg_half_length)
+    peg_p = base.peg.pose.p
+    hover = torch.cat([peg_p[:, :2], torch.full_like(peg_p[:, :1], 0.10)], -1)
+    mp.move_to_pose(_pose(hover, down), refine_steps=3)
+    grasp = _set(hover, 2, float(base.peg_half_width) + 0.005)
+    mp.move_to_pose(_pose(grasp, down), refine_steps=5)
+    mp.close_gripper(steps=8)
+    # high enough for the peg to clear the table when vertical
+    lifted = _set(grasp, 2, hl + 0.10)
+    mp.move_to_pose(_pose(lifted, down), refine_steps=4)
+    # +90 degrees about world y: the peg's +x turns to -z; this drives joint
+    # 6 toward its wide upper limit (-90 would hit its lower limit at 0)
+    tilt = device_vector((math.cos(math.pi / 4), 0.0, math.sin(math.pi / 4), 0.0), peg_p.device)
+    q_up = rc.quaternion_multiply(tilt.expand(peg_p.shape[0], 4), down.expand(peg_p.shape[0], 4))
+    # tracked as a Cartesian arc: one far IK target stalls at the limits
+    mp.move_to_pose(_pose(lifted, q_up), steps=60, refine_steps=6, arc_steps=6)
+    mp.move_to_pose(_pose(_set(lifted, 2, hl + 0.01), q_up), refine_steps=6)
+    return mp.open_gripper(steps=8)
+
+
+def solve_pull_cube_tool(env):
+    """Grasp the L tool's handle, sweep its hook behind the cube beyond
+    reach, and drag the cube in."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    down = mp.down_q
+    mp.open_gripper(steps=3)
+    hl, h, w = float(base.handle_length), float(base.height), float(base.width)
+    tool_p = base.l_shape_tool.pose.p
+    # the handle near its base; the tool's centre is at z = h/2
+    grip = _set(_add(tool_p, 0, 0.02), 2, h / 2 + 0.005)
+    mp.move_to_pose(_pose(_set(grip, 2, 0.10), down), refine_steps=3)
+    mp.move_to_pose(_pose(grip, down), refine_steps=5)
+    mp.close_gripper(steps=8)
+    mp.move_to_pose(_pose(_set(grip, 2, 0.10), down), refine_steps=2)
+
+    cube_p = base.cube.pose.p
+    # the hook's -x face sits at tool origin + (hl - hook length); park it
+    # ~0.04 beyond the cube's centre (the TCP rides 0.02 ahead of the origin)
+    hook_clear = hl - float(base.hook_length) - 0.02
+    tcp_x = cube_p[:, 0] + 0.04 - hook_clear
+    # the hook spans tool-local y in [0, 2w]: centre it on the cube
+    tcp_y = cube_p[:, 1] - w
+    hook_hi = torch.stack([tcp_x, tcp_y, torch.full_like(tcp_x, 0.12)], -1)
+    mp.move_to_pose(_pose(hook_hi, down), refine_steps=3)
+    hook_lo = _set(hook_hi, 2, h / 2 + 0.005)
+    mp.move_to_pose(_pose(hook_lo, down), refine_steps=4)
+    # drag back toward the robot's base
+    return mp.move_to_pose(_pose(_add(hook_lo, 0, -0.35), down), steps=80, refine_steps=8)
+
+
+SOLUTIONS = {
+    "PushCube-v1": solve_push_cube,
+    "PickCube-v1": solve_pick_cube,
+    "PullCube-v1": solve_pull_cube,
+    "StackCube-v1": solve_stack_cube,
+    "PlaceSphere-v1": solve_place_sphere,
+    "StackPyramid-v1": solve_stack_pyramid,
+    "LiftPegUpright-v1": solve_lift_peg_upright,
+    "PullCubeTool-v1": solve_pull_cube_tool,
+}

@@ -105,6 +105,13 @@ class Actor:
             qvel=scene.write_cols(d.qvel, slice(lo, lo + 3), scene.to_batch(v, 3))
         )
 
+    def is_static_check(self, lin_thresh: float = 1e-2, ang_thresh: float = 0.5) -> torch.Tensor:
+        """(B,) bool: the actor's linear and angular speeds are both at most
+        their thresholds."""
+        v = torch.linalg.vector_norm(self.linear_velocity, dim=-1)
+        w = torch.linalg.vector_norm(self.angular_velocity, dim=-1)
+        return (v <= lin_thresh) & (w <= ang_thresh)
+
     # -- state (13,) = [pose7, linvel3, angvel3] -------------------------
     def get_state(self) -> torch.Tensor:
         return torch.cat(

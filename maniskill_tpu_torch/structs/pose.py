@@ -67,6 +67,13 @@ class Pose:
             return cls(pose)
         return cls(np.asarray(pose, np.float32))
 
+    @classmethod
+    def create_from_pq(cls, p: torch.Tensor, q: torch.Tensor) -> "Pose":
+        """A pose from a position and a wxyz quaternion, each broadcast to the
+        other's batch shape (both tensors on one device)."""
+        batch = torch.broadcast_shapes(p.shape[:-1], q.shape[:-1])
+        return cls(torch.cat([p.expand(batch + (3,)), q.expand(batch + (4,))], -1))
+
     @property
     def p(self):
         return self.raw_pose[..., :3]

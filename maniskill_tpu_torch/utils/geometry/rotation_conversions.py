@@ -80,3 +80,34 @@ def integrate_quaternion(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tens
     dq = axis_angle_to_quaternion(omega * dt)
     out = quaternion_multiply(dq, q)
     return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+
+
+def standardize_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion(s) in the canonical form with a non-negative real part."""
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quaternion_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz -> (..., 3) rotation vector. The small-angle branch
+    guards its division with a second ``where``, so ``norm == 0`` gives no
+    NaN (in the value or in its gradient)."""
+    q = standardize_quaternion(q)
+    norm = torch.linalg.vector_norm(q[..., 1:], dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(norm, q[..., :1])
+    small = norm < 1e-6
+    scale = torch.where(
+        small,
+        2.0 + angle * angle / 12.0,
+        angle / torch.where(small, torch.ones_like(norm), norm),
+    )
+    return q[..., 1:] * scale
+
+
+def matrix_to_euler_angles(m: torch.Tensor, convention: str = "XYZ") -> torch.Tensor:
+    """Rotation matrix -> intrinsic XYZ Euler angles, R = Rx(a) Ry(b) Rz(c)."""
+    if convention != "XYZ":
+        raise NotImplementedError(convention)
+    b = torch.asin(torch.clamp(m[..., 0, 2], -1.0, 1.0))
+    a = torch.atan2(-m[..., 1, 2], m[..., 2, 2])
+    c = torch.atan2(-m[..., 0, 1], m[..., 0, 0])
+    return torch.stack([a, b, c], -1)

@@ -11,7 +11,6 @@ exceeds 1, on pos, normal and depth of live rows; the dead-row masks are
 equal.
 """
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -37,6 +36,8 @@ from maniskill_tpu_torch.physics import solver as tsolver
 from maniskill_tpu_torch.physics.plan import model_plan
 from maniskill_tpu_torch.physics.types import BOX, CAPSULE, CYLINDER, PLANE, SPHERE
 from maniskill_tpu_torch.utils.common import top_k_stable
+
+from test_torch_common import f32_solver  # noqa: F401
 
 ATOL = 1e-5
 B = 64
@@ -164,14 +165,9 @@ def test_top_k_stable_matches_xla_top_k():
 @pytest.fixture
 def f32_reference_solver():
     """The reference solver's bf16 cast made an identity (see
-    tests/test_torch_physics.py), so both sides run the same f32 algorithm."""
-    proxy = types.ModuleType("jnp_f32_solver")
-    proxy.__dict__.update(jnp.__dict__)
-    proxy.bfloat16 = jnp.float32
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jsolver, "jnp", proxy)
-    yield
-    mp.undo()
+    tests/test_torch_common.py), so both sides run the same f32 algorithm."""
+    with f32_solver():
+        yield
 
 
 def _numpy_fields(obj):

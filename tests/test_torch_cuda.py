@@ -1,5 +1,6 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written kernels
-against their plain torch versions, and the slice running through them.
+against their plain torch versions, the slices running through them, and
+the IK on the card.
 
 They skip without a card. This file imports no JAX, so it also runs on the
 GPU machine, which has none (see README, "PyTorch/CUDA port").
@@ -120,6 +121,68 @@ def test_pick_cube_rgb_through_the_kernel(cuda):
     assert int(dp) == 0
     assert torch.equal((torch.clamp(rp, 0, 1) * 255).to(torch.uint8), rgb)
     assert (sp >= 0).float().mean() > 0.5
+
+
+def test_pick_cube_depth_and_segmentation_match_plain(cuda):
+    """rgb+depth+segmentation through the kernel: the int16 depth equals the
+    plain version's, background (0) included; segmentation agrees."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    n = 8
+    env = make("PickCube-v1", num_envs=n, obs_mode="rgb+depth+segmentation",
+               control_mode="pd_joint_delta_pos", device=cuda)
+    base = env.unwrapped
+    env.reset(seed=0)
+    obs, *_ = env.step(torch.zeros(n, 8, device=cuda))
+    cam_obs = obs["sensor_data"]["base_camera"]
+    cam = base._sensors["base_camera"]
+    mesh = cam._get_mesh(tuple(base._hidden_objects))
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj,
+                          128, 128, lights=base.scene.lights)
+    zp, sp, _, _ = tr.rasterize_tiles_ref(*inputs, 128, 128)
+    valid = sp >= 0
+    depth = torch.clamp(torch.where(valid, zp, 0.0) * 1000.0, 0, 32767).to(torch.int16)[..., None]
+    assert torch.equal(depth, cam_obs["depth"])
+    assert torch.equal(torch.where(valid, sp, 0).to(torch.int16)[..., None], cam_obs["segmentation"])
+    assert (cam_obs["depth"] == 0).any() and (cam_obs["depth"] > 0).any()
+    assert bool((cam_obs["segmentation"] == base.cube.per_scene_id).any())
+
+
+def test_compute_ik_on_card(cuda):
+    """Kinematics.compute_ik on the card agrees with the CPU within 1e-4 rad
+    and never synchronizes the stream."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.agents.controllers.utils.kinematics import Kinematics
+
+    arm = [f"panda_joint{i}" for i in range(1, 8)]
+    out = {}
+    rng = np.random.default_rng(0)
+    q_off = rng.uniform(-0.15, 0.15, (16, 7)).astype(np.float32)
+    q_goal_off = rng.uniform(-0.15, 0.15, (16, 7)).astype(np.float32)
+    for dev in ("cpu", cuda):
+        env = make("PickCube-v1", num_envs=16, obs_mode="state", control_mode="pd_joint_pos", device=dev)
+        env.reset(seed=0)
+        base = env.unwrapped
+        kin = Kinematics(base.scene, base.agent.robot, "panda_hand_tcp", arm)
+        q0 = base.scene.data.qpos[:, kin.q_idx] + torch.as_tensor(q_off, device=dev)
+        xpos, xquat = kin._fk(q0 + torch.as_tensor(q_goal_off, device=dev))
+        target = torch.cat([xpos[:, kin.end_body], xquat[:, kin.end_body]], -1)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            q = kin.compute_ik(target, q0, iterations=40)
+        finally:
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode("default")
+        out[str(dev)] = q.cpu()
+    assert (out["cpu"] - out["cuda"]).abs().max() <= 1e-4
 
 
 def test_batched_rng_cpu_equals_cuda(cuda):

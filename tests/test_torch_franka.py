@@ -3,38 +3,22 @@ obs, Panda on a ground plane, 100/50 Hz) against the JAX package's, on the
 CPU: both envs set to the same ``reset_to_env_states`` take 2 control steps
 of seeded random actions; qpos at atol 1e-4, qvel at 1e-3, obs at 1e-3,
 ``contact.overflow == 0`` on both sides. The reference solver runs with its
-bf16 matvec cast made an identity (see tests/test_torch_physics.py).
+bf16 matvec cast made an identity (see tests/test_torch_common.py).
 """
-import types
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
 import maniskill_tpu.envs  # noqa: F401
-from maniskill_tpu.physics import solver as jsolver
 from maniskill_tpu.utils.registration import make as jmake
 
 import maniskill_tpu_torch.envs  # noqa: F401
 from maniskill_tpu_torch import make as tmake
 
+from test_torch_common import f32_reference_solver, one_torch_thread, tree  # noqa: F401
+
 B = 2
-
-
-@pytest.fixture(scope="module")
-def f32_reference_solver():
-    proxy = types.ModuleType("jnp_f32_solver")
-    proxy.__dict__.update(jnp.__dict__)
-    proxy.bfloat16 = jnp.float32
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jsolver, "jnp", proxy)
-    yield
-    mp.undo()
-
-
-def _tree(x, fn):
-    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
 @pytest.mark.parametrize("uid", ["FrankaMoveBenchmark-v1", "FrankaPickCubeBenchmark-v1"])
@@ -45,7 +29,7 @@ def test_benchmark_env_matches_reference(uid, f32_reference_solver):
     assert base.sim_config.sim_steps_per_control == 2
     assert base.scene.model.solver_iterations == (8 if "Move" in uid else 10)
     je.reset(seed=0)
-    state = _tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
+    state = tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
     te.reset(seed=0, options=dict(reset_to_env_states=state))
 
     rng = np.random.default_rng(1)

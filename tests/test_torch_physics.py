@@ -14,7 +14,6 @@ the two packages contract sums and fuse multiply-adds differently.
 """
 import dataclasses
 import importlib
-import types
 
 import numpy as np
 import pytest
@@ -40,6 +39,8 @@ from maniskill_tpu_torch.physics import kinematics as tkin
 from maniskill_tpu_torch.physics import solver as tsolver
 from maniskill_tpu_torch.physics.collision import collide as tcollide
 from maniskill_tpu_torch.physics.types import BOX, CYLINDER, FREE, HINGE, KINEMATIC, PLANE, SLIDE, SPHERE
+
+from test_torch_common import f32_reference_solver  # noqa: F401
 
 jstep = importlib.import_module("maniskill_tpu.physics.step")
 tstep = importlib.import_module("maniskill_tpu_torch.physics.step")
@@ -217,22 +218,6 @@ def _pipeline(fns, m, d):
     out.update(step_qpos=d.qpos, step_qvel=d.qvel, step_qacc=d.qacc,
                forward_xpos=stp.forward(m, d).xpos)
     return out
-
-
-@pytest.fixture(scope="module")
-def f32_reference_solver():
-    """The reference solver casts J and W to bf16 for the TPU's matrix unit
-    (maniskill_tpu/physics/solver.py:293-306); the port keeps them f32. For
-    parity the reference runs here with that cast made an identity, so both
-    sides compute the same f32 algorithm (with the cast, contact rows differ
-    by ~5e-3 in qvel: bf16's 8-bit mantissa)."""
-    proxy = types.ModuleType("jnp_f32_solver")
-    proxy.__dict__.update(jnp.__dict__)
-    proxy.bfloat16 = jnp.float32
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jsolver, "jnp", proxy)
-    yield
-    mp.undo()
 
 
 @pytest.fixture(scope="module")

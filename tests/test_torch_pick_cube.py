@@ -10,20 +10,17 @@ substeps, 16 solver iterations) against the JAX package's, on the CPU.
   the boolean infos exactly, and ``contact.overflow == 0`` on both sides.
 
 The reference solver runs with its bf16 matvec cast made an identity (see
-tests/test_torch_physics.py), applied before the JAX env compiles its step.
+tests/test_torch_common.py), applied before the JAX env compiles its step.
 """
 import dataclasses
 import importlib
-import types
 
 import numpy as np
 import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 import maniskill_tpu.envs  # noqa: F401
-from maniskill_tpu.physics import solver as jsolver
 from maniskill_tpu.physics.collision import collide as jcollide
 from maniskill_tpu.utils.registration import make as jmake
 
@@ -32,16 +29,14 @@ from maniskill_tpu_torch import make as tmake
 from maniskill_tpu_torch import physics as tphys
 from maniskill_tpu_torch.physics.collision import collide as tcollide
 
+from test_torch_common import f32_reference_solver, one_torch_thread, tree  # noqa: F401
+
 jstep = importlib.import_module("maniskill_tpu.physics.step")
 tstep = importlib.import_module("maniskill_tpu_torch.physics.step")
 
 B = 4
 ENV = dict(obs_mode="state_dict", reward_mode="dense", control_mode="pd_joint_delta_pos")
 DEAD = -1e5
-
-
-def _tree(x, fn):
-    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
 def _np(v):
@@ -78,17 +73,11 @@ def _bridge_contact(c):
 
 
 @pytest.fixture(scope="module")
-def envs():
+def envs(f32_reference_solver):
     """(JAX env, port env), the JAX solver in f32 before its step compiles."""
-    proxy = types.ModuleType("jnp_f32_solver")
-    proxy.__dict__.update(jnp.__dict__)
-    proxy.bfloat16 = jnp.float32
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jsolver, "jnp", proxy)
     je = jmake("PickCube-v1", num_envs=B, **ENV)
     te = tmake("PickCube-v1", num_envs=B, device="cpu", **ENV)
-    yield je, te
-    mp.undo()
+    return je, te
 
 
 def test_model_matches_reference(envs):
@@ -145,7 +134,7 @@ def test_substep_from_bridged_data(envs):
 def test_env_steps_match_reference(envs):
     je, te = envs
     je.reset(seed=0)
-    state = _tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
+    state = tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
     te.reset(seed=0, options=dict(reset_to_env_states=state))
     np.testing.assert_array_equal(te.unwrapped.scene.data.qpos.numpy(),
                                   np.asarray(je.unwrapped.scene.data.qpos))
@@ -176,9 +165,10 @@ def test_env_steps_match_reference(envs):
 
 
 def test_unported_control_modes_raise():
-    """The end-effector and joint-velocity modes raise, naming the mode, and
-    never fall back to another mode."""
-    for mode in ("pd_ee_delta_pose", "pd_joint_vel"):
+    """A mode the Panda does not have raises, naming the mode, and never
+    falls back to another mode (the Panda now has all eight of the JAX
+    package's modes, so the modes asked for here are ones it never had)."""
+    for mode in ("pd_joint_pos_vel", "pd_base_vel"):
         with pytest.raises(NotImplementedError, match=mode):
             tmake("PickCube-v1", num_envs=1, device="cpu", control_mode=mode)
     env = tmake("PickCube-v1", num_envs=1, device="cpu", control_mode="pd_joint_target_delta_pos")

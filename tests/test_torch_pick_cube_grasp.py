@@ -5,9 +5,8 @@ fingers grasp a cube placed between them.
 Both envs start from the same ``reset_to_env_states``. Forces agree at 1e-3
 relative to the largest force (the port keeps the solver's matvecs in f32;
 the reference runs with its bf16 cast made an identity, see
-tests/test_torch_physics.py).
+tests/test_torch_common.py).
 """
-import types
 
 import numpy as np
 import pytest
@@ -15,41 +14,32 @@ import torch
 
 import jax.numpy as jnp
 import maniskill_tpu.envs  # noqa: F401
-from maniskill_tpu.physics import solver as jsolver
 from maniskill_tpu.utils.registration import make as jmake
 
 import maniskill_tpu_torch.envs  # noqa: F401
 from maniskill_tpu_torch import make as tmake
 from maniskill_tpu_torch.utils.geometry import rotation_conversions as rc
 
+from test_torch_common import f32_reference_solver, one_torch_thread, tree  # noqa: F401
+
 B = 4
 ENV = dict(obs_mode="state_dict", reward_mode="dense", control_mode="pd_joint_delta_pos")
 CUBE_WEIGHT = 0.064 * 9.81  # 4 cm cube of density 1000, in N
 
 
-def _tree(x, fn):
-    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
-
-
 @pytest.fixture(scope="module")
-def envs():
-    proxy = types.ModuleType("jnp_f32_solver")
-    proxy.__dict__.update(jnp.__dict__)
-    proxy.bfloat16 = jnp.float32
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jsolver, "jnp", proxy)
+def envs(f32_reference_solver):
     je = jmake("PickCube-v1", num_envs=B, **ENV)
     te = tmake("PickCube-v1", num_envs=B, device="cpu", **ENV)
-    yield je, te
-    mp.undo()
+    return je, te
 
 
 def _start(je, te, seed, edit=None):
     je.reset(seed=seed)
-    state = _tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
+    state = tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
     if edit is not None:
         state = edit(state)
-    je.reset(options=dict(reset_to_env_states=_tree(state, lambda v: jnp.asarray(v.numpy()))))
+    je.reset(options=dict(reset_to_env_states=tree(state, lambda v: jnp.asarray(v.numpy()))))
     te.reset(options=dict(reset_to_env_states=state))
 
 

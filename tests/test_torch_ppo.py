@@ -17,9 +17,8 @@ JAX package's (maniskill_tpu/parallel/train.py), on the CPU.
 - One whole ``train_step`` in the state branch on the CPU.
 
 The JAX inner functions are closures of ``train_step``; the reference solver
-runs with its bf16 matvec cast made an identity (tests/test_torch_physics.py).
+runs with its bf16 matvec cast made an identity (tests/test_torch_common.py).
 """
-import types
 
 import numpy as np
 import pytest
@@ -29,21 +28,18 @@ import jax
 import jax.numpy as jnp
 import maniskill_tpu.envs  # noqa: F401
 from maniskill_tpu.parallel import train as jtrain
-from maniskill_tpu.physics import solver as jsolver
 from maniskill_tpu.utils.registration import make as jmake
 
 import maniskill_tpu_torch.envs  # noqa: F401
 from maniskill_tpu_torch import make as tmake
 from maniskill_tpu_torch.parallel import train as ttrain
 
+from test_torch_common import f32_reference_solver, one_torch_thread, tree  # noqa: F401
+
 B = 8
 STATE_CKPT = "examples_checkpoints/ppo_pickcube_state.pkl"
 RGB_CKPT = "examples_checkpoints/ppo_pushcube_rgb.pkl"
 CFG = dict(gamma=0.8, gae_lambda=0.9, update_epochs=1, num_minibatches=1)
-
-
-def _tree(x, fn):
-    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
 def _closures(fn):
@@ -58,17 +54,11 @@ def _close_rel(a, b, tol, what=""):
 
 
 @pytest.fixture(scope="module")
-def envs():
+def envs(f32_reference_solver):
     """(JAX env, port env), PickCube-v1 state, the JAX solver in f32."""
-    proxy = types.ModuleType("jnp_f32_solver")
-    proxy.__dict__.update(jnp.__dict__)
-    proxy.bfloat16 = jnp.float32
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jsolver, "jnp", proxy)
     je = jmake("PickCube-v1", num_envs=B, obs_mode="state")
     te = tmake("PickCube-v1", num_envs=B, obs_mode="state", device="cpu")
-    yield je, te
-    mp.undo()
+    return je, te
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +199,7 @@ def _same_start(je, te, seed):
     """Both envs at the JAX env's reset state for ``seed``; returns the
     port's obs."""
     je.reset(seed=seed)
-    state = _tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
+    state = tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
     obs, _ = te.reset(seed=seed, options=dict(reset_to_env_states=state))
     return obs
 

@@ -18,19 +18,16 @@ vector env on it.
 - One whole PPO ``train_step`` in the visual branch (rgb, 4 envs).
 
 The reference solver runs with its bf16 matvec cast made an identity (see
-tests/test_torch_physics.py), applied before the JAX env compiles its step.
+tests/test_torch_common.py), applied before the JAX env compiles its step.
 """
 import dataclasses
-import types
 
 import numpy as np
 import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 import maniskill_tpu.envs  # noqa: F401
-from maniskill_tpu.physics import solver as jsolver
 from maniskill_tpu.utils.registration import make as jmake
 
 import maniskill_tpu_torch.envs  # noqa: F401
@@ -38,13 +35,11 @@ from maniskill_tpu_torch import make as tmake
 from maniskill_tpu_torch.parallel import train as ttrain
 from maniskill_tpu_torch.vector import ManiSkillVectorEnv
 
+from test_torch_common import f32_reference_solver, one_torch_thread, tree  # noqa: F401
+
 B = 4
 ENV = dict(obs_mode="state_dict", reward_mode="dense", control_mode="pd_joint_delta_pos")
 CUBE_WEIGHT = 0.064 * 9.81
-
-
-def _tree(x, fn):
-    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
 def _np(v):
@@ -52,22 +47,16 @@ def _np(v):
 
 
 @pytest.fixture(scope="module")
-def envs():
+def envs(f32_reference_solver):
     """(JAX env, port env), the JAX solver in f32 before its step compiles."""
-    proxy = types.ModuleType("jnp_f32_solver")
-    proxy.__dict__.update(jnp.__dict__)
-    proxy.bfloat16 = jnp.float32
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jsolver, "jnp", proxy)
     je = jmake("PushCube-v1", num_envs=B, **ENV)
     te = tmake("PushCube-v1", num_envs=B, device="cpu", **ENV)
-    yield je, te
-    mp.undo()
+    return je, te
 
 
 def _same_start(je, te, seed):
     je.reset(seed=seed)
-    state = _tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
+    state = tree(je.unwrapped.get_state_dict(), lambda v: torch.as_tensor(np.array(v)))
     te.reset(seed=seed, options=dict(reset_to_env_states=state))
     np.testing.assert_array_equal(te.unwrapped.scene.data.qpos.numpy(), np.asarray(je.unwrapped.scene.data.qpos))
 
