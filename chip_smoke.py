@@ -40,13 +40,13 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
  13. ppo_pushcube_rgb.pkl evaluated greedily at 512 envs over 50 steps:
      success_once >= 0.80.
  14. End-effector and joint-velocity control, PickCube-v1 state, 4096 envs:
-     for each of the four pd_ee_* modes and pd_joint_vel, 20 timed
+     for each of the four pd_ee_* modes and pd_joint_vel, 10 timed
      zero-action steps, the IK's ms, launches and syncs per control step,
      and one profiled step with 0 stream/event syncs and 0 host-to-device
      copies; a constant +x command in pd_ee_delta_pos moves the TCP along +x
      (cosine >= 0.99); zero actions in pd_ee_target_delta_pose drift the TCP
      as the CPU does from the same state (16 envs, within 0.1 mm).
- 15. PickCube-v1 rgb+depth+segmentation and state, 2048 envs: 50 timed steps
+ 15. PickCube-v1 rgb+depth+segmentation and state, 2048 envs: 30 timed steps
      each, the two envs alternating step by step, and their rate ratio (the
      median of the step pairs'); kernel launches == resets + steps, dropped
      == 0, the last frame of 16 envs re-rendered through the plain version
@@ -61,8 +61,35 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
  17. The planner on StackCube-v1 rgb+depth+segmentation at 2048 envs: success
      within 0.02 of phase 16's, kernel launches == resets + steps, the last
      frame of 16 envs re-rendered as in phase 15, both cubes' ids present.
-Phases 6 and 8 time 20 steps and phase 10 runs 2 PPO iterations, so that
-the whole run stays well inside its time limit.
+ 18. PickSingleYCB-v1 state, 4096 envs (convex hull contacts, a different
+     object in each env): make time and set_per_env_hulls's share, all 13
+     model ids present, 20 timed zero-action steps; one profiled step with 0
+     stream/event syncs and 0 host-to-device copies; contact.overflow max.
+     Statics after the 20 steps: for the 11 models the JAX package holds at
+     rest, the table's vertical force on the object within 2% of its weight
+     and the object moved under 2 mm in every env; the two cylinder stand-ins
+     rock in the JAX package too, so their envs among the first 64 (the
+     states of scripts/ycb_statics.py) are held to the JAX package's CPU
+     figures from those states (within 1.25x).
+ 19. PickSingleYCB-v1 rgb, 2048 envs (base and hand cameras over per-env
+     hull meshes): 20 timed steps; kernel launches == cameras x (resets +
+     steps), the last frame of 16 envs of each camera re-rendered through the
+     plain version (seg agreement >= 0.999, rgb equal); kernel ms per frame
+     and its bound; two envs holding different models, set to one pose, show
+     different object masks.
+ 20. PickClutterYCB-v1 state, 1024 envs (hull-hull pairs): 20 timed steps,
+     a profiled step (0 syncs, 0 host-to-device copies), the share of envs
+     with contact.overflow > 0 and its max (reported; overflow is allowed);
+     8 envs from the states of scripts/clutter_overflow.py: with each env's
+     second object set down on its first, the narrowphase's live hull-hull
+     contact rows per env equal to the JAX package's on the CPU and the
+     deepest of them within 1e-5 m; after 3 steps, overflow per env equal.
+ Phase 16 also runs the planner on PickSingleYCB-v1 at 1024 envs; its limit
+ is the JAX package's own rate less 0.15, and its solution syncs twice once
+ (the grasp PCA's read and write), besides one sync per move.
+Phases 6 and 8 time 20 steps, phase 10 runs 2 PPO iterations, phase 14
+times 10 steps per mode and phase 15 30 step pairs, so that the whole run
+stays well inside its time limit.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on each path, errors, times and bounds.
 """
@@ -81,18 +108,18 @@ import numpy as np
 CARTPOLE = ("CartpoleBalanceBenchmark-v1", 1024, 50)
 PICKCUBE_STATE = ("PickCube-v1", 4096, 20)
 PICKCUBE_RGB = ("PickCube-v1", 2048, 20)
-PD_EE = ("PickCube-v1", 4096, 20)
+PD_EE = ("PickCube-v1", 4096, 10)
 EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose", "pd_ee_target_delta_pos", "pd_ee_target_delta_pose",
             "pd_joint_vel")
-PICKCUBE_RGBD = ("PickCube-v1", 2048, 50)
+PICKCUBE_RGBD = ("PickCube-v1", 2048, 30)
 RGBD_RATIO_4090 = 0.909  # rgb+depth+segmentation / state fps of ManiSkill on an RTX 4090 (BASELINE.md)
 # motion planner cells: (env, envs); the limit is the JAX package's recorded
 # demo success (demos/<env>/mp_<env>.json) less 0.15
 # the longest first: phase 16 runs them in PLANNER_WORKERS processes that
 # share the card, since each is bound by its own host's kernel launches
-PLANNER = (("StackPyramid-v1", 1024), ("LiftPegUpright-v1", 1024), ("PullCubeTool-v1", 1024),
-           ("PlaceSphere-v1", 1024), ("StackCube-v1", 4096), ("PickCube-v1", 1024), ("PullCube-v1", 1024),
-           ("PushCube-v1", 1024))
+PLANNER = (("StackPyramid-v1", 1024), ("PickSingleYCB-v1", 1024), ("LiftPegUpright-v1", 1024),
+           ("PullCubeTool-v1", 1024), ("PlaceSphere-v1", 1024), ("StackCube-v1", 4096), ("PickCube-v1", 1024),
+           ("PullCube-v1", 1024), ("PushCube-v1", 1024))
 PLANNER_WORKERS = 4
 PLANNER_CLI = ("StackCube-v1", 4096)  # run through the CLI, alone, after the shared phase
 PLANNER_RGBD = ("StackCube-v1", 2048)
@@ -100,8 +127,34 @@ PLANNER_RGBD = ("StackCube-v1", 2048)
 # solves 104/128 = 0.8125 of a batch on the CPU with the f32 solver (and
 # 0.7421875 with its bf16 one; scripts/planner_rates.py jax [--f32-solver]);
 # its limit is that rate less 0.15
-PLANNER_REFERENCE_RATE = {"LiftPegUpright-v1": 0.8125}
+# PickSingleYCB has no recorded demos: the JAX package's planner solves 63/128
+# = 0.492188 of a batch on the CPU with the f32 solver
+# (scripts/planner_rates.py jax --f32-solver)
+PLANNER_REFERENCE_RATE = {"LiftPegUpright-v1": 0.8125, "PickSingleYCB-v1": 0.492188}
+# host syncs a solution makes once, besides the one read of each move: the
+# YCB grasp reads the object's pose once and copies its grasp numbers back once
+PLANNER_SETUP_SYNCS = {"PickSingleYCB-v1": 2}
 FRANKA = (("FrankaMoveBenchmark-v1", 4096, 20), ("FrankaPickCubeBenchmark-v1", 8192, 20))
+YCB_STATE = ("PickSingleYCB-v1", 4096, 20)
+YCB_RGB = ("PickSingleYCB-v1", 2048, 20)
+CLUTTER = ("PickClutterYCB-v1", 1024, 20)
+YCB_MODEL_COUNT = 13
+# the cylinder stand-ins rock on their 16-vertex hull proxies in the JAX
+# package as well: its largest relative table-force error and displacement
+# (m) over their envs among 64 (scripts/ycb_statics.py jax, seed 0, 20 steps)
+YCB_ROCKING = {"002_master_chef_can": (0.095749, 2.226294e-3), "005_tomato_soup_can": (0.018669, 0.627881e-3)}
+YCB_ROCKING_ENVS = 64
+YCB_ROCKING_SLACK = 1.25
+# the JAX package's PickClutterYCB contacts from the port's seed-0 states at
+# 8 envs (scripts/clutter_overflow.py jax): contact.overflow per env after 3
+# zero-action steps; with each env's second object set down on its first
+# (+CLUTTER_STACK_OFFSET m), the narrowphase's live hull-hull contact rows per
+# env and the deepest of them (m), held within CLUTTER_DEPTH_TOL
+CLUTTER_JAX_OVERFLOW = [0, 0, 0, 0, 0, 0, 0, 0]
+CLUTTER_STACK_OFFSET = (0.02, 0.01, 0.06)
+CLUTTER_JAX_HULL_ROWS = [48, 64, 144, 64, 64, 64, 48, 64]
+CLUTTER_JAX_DEEPEST = [-0.009, 0.07601956, 0.05153158, 0.05490051, 0.05453789, 0.02, 0.06321333, 0.03838773]
+CLUTTER_DEPTH_TOL = 1e-5
 # PPO cells: README.md's recipes (env, envs, rollout steps, epochs, minibatches,
 # iterations run here, total steps of the recipe for the learning-rate decay)
 PPO_STATE = ("PickCube-v1", 4096, 4, 8, 32, 2, 100_000_000)
@@ -414,6 +467,7 @@ def rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
 
 
 def recorded_rate(uid: str) -> float:
+    """The demo success recorded for ``uid``."""
     with open(f"demos/{uid}/mp_{uid}.json") as f:
         episodes = json.load(f)["episodes"]
     return sum(e["success"] for e in episodes) / len(episodes)
@@ -470,10 +524,11 @@ def planner_run(torch, dev, make, card, uid, n_envs, obs_mode, seed, kernel=None
     rate = float(info["success"].float().mean())
     check(int(base.scene.data.contact.overflow.max()) == 0, f"planner {uid}: contact overflow")
     print(f"planner {uid} {obs_mode} x{n_envs}: success {rate:.6f} ({int(info['success'].sum())}/{n_envs}), "
-          f"{steps} control steps, {moves} moves, {syncs / max(moves, 1):.2f} syncs per move, {wall:.2f} s, "
+          f"{steps} control steps, {moves} moves, {syncs} host syncs, {wall:.2f} s, "
           f"{n_envs * steps / wall:.1f} env-steps/s {card}")
-    check(syncs == moves, f"planner {uid}: {syncs} host syncs in {moves} moves (one per move expected), "
-                          f"at {dict(sites)}")
+    want = moves + PLANNER_SETUP_SYNCS.get(uid, 0)
+    check(syncs == want, f"planner {uid}: {syncs} host syncs in {moves} moves ({want} expected: one per move "
+                         f"and the solution's {PLANNER_SETUP_SYNCS.get(uid, 0)} once), at {dict(sites)}")
     return env, rate
 
 
@@ -492,7 +547,8 @@ def planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
         pool.shutdown(wait=True, cancel_futures=True)
     print(f"planner state: {len(PLANNER)} tasks in {PLANNER_WORKERS} processes in "
           f"{time.perf_counter() - t0:.2f} s {card}")
-    limits = {uid: min(recorded_rate(uid), PLANNER_REFERENCE_RATE.get(uid, 1.0)) - 0.15 for uid, _ in PLANNER}
+    limits = {uid: (PLANNER_REFERENCE_RATE[uid] if uid in PLANNER_REFERENCE_RATE else recorded_rate(uid)) - 0.15
+              for uid, _ in PLANNER}
     for uid, _ in PLANNER:
         check(rates[uid] >= limits[uid], f"planner {uid}: success {rates[uid]:.4f} < {limits[uid]:.4f}")
     # the CLI a user runs, alone on the card: one batch of StackCube @4096
@@ -539,6 +595,214 @@ def planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     print(f"raster kernel (planner stackcube rgbd, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain "
           f"{p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) {card}")
     return err
+
+
+def ycb_state_phase(torch, dev, make, card):
+    """Phase 18: PickSingleYCB-v1 state at 4096 envs."""
+    from maniskill_tpu_torch.envs.scene import ManiSkillScene
+    from maniskill_tpu_torch.utils.timing import profile_calls, timed_steps
+
+    uid, n_envs, n_steps = YCB_STATE
+    hull_s = []
+    set_hulls = ManiSkillScene.set_per_env_hulls
+
+    def timed_set_hulls(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        set_hulls(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        hull_s.append(time.perf_counter() - t0)
+
+    ManiSkillScene.set_per_env_hulls = timed_set_hulls
+    try:
+        t0 = time.perf_counter()
+        env = make(uid, num_envs=n_envs, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev)
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t0
+    finally:
+        ManiSkillScene.set_per_env_hulls = set_hulls
+    base = env.unwrapped
+    model_ids = np.asarray(base.model_ids)
+    n_models = len(np.unique(model_ids))
+    print(f"{uid} x{n_envs}: make {make_s:.2f} s, of which set_per_env_hulls {sum(hull_s):.3f} s; "
+          f"{n_models} distinct model ids {card}")
+    check(n_models == YCB_MODEL_COUNT, f"{uid}: {n_models} model ids of {YCB_MODEL_COUNT} present")
+    zero = torch.zeros(n_envs, 8, device=dev)
+    env.reset(seed=0)
+    env.step(zero)  # builds the lazy tables (contact signs)
+    env.reset(seed=0)
+    p0 = base.obj.pose.p.clone()
+    step_s = timed_steps(env, zero, n_steps)
+    data = base.scene.data
+    check(bool(torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()), f"{uid}: state not finite")
+    overflow = int(data.contact.overflow.max())
+    force = base.scene.get_pairwise_contact_forces(base.table_scene.table, base.obj)[:, 2]
+    weight = base.scene.model.body_mass[:, base.obj.body_id] * 9.81
+    rel = ((force - weight).abs() / weight).cpu().numpy()
+    moved = (base.obj.pose.p - p0).norm(dim=-1).cpu().numpy()
+    for mid in np.unique(model_ids):
+        sel = model_ids == mid
+        print(f"  {mid} in {int(sel.sum())} envs: table force vs weight rel err max {rel[sel].max():.6f}, "
+              f"displacement max {moved[sel].max() * 1e3:.4f} mm")
+        if mid in YCB_ROCKING:
+            ref_rel, ref_moved = YCB_ROCKING[mid]
+            first = sel & (np.arange(n_envs) < YCB_ROCKING_ENVS)
+            check(rel[first].max() <= YCB_ROCKING_SLACK * ref_rel and
+                  moved[first].max() <= YCB_ROCKING_SLACK * ref_moved,
+                  f"{uid} statics: {mid} in the first {YCB_ROCKING_ENVS} envs: rel err {rel[first].max():.6f}, "
+                  f"displacement {moved[first].max() * 1e3:.4f} mm against the JAX package's {ref_rel:.6f}, "
+                  f"{ref_moved * 1e3:.4f} mm (x{YCB_ROCKING_SLACK})")
+        else:
+            check(rel[sel].max() <= 0.02, f"{uid} statics: {mid}: table force off its weight by {rel[sel].max():.4f}")
+            check(moved[sel].max() <= 2e-3, f"{uid} statics: {mid} moved {moved[sel].max() * 1e3:.3f} mm")
+    _, prof = profile_calls(lambda: env.step(zero), 1)
+    check(prof["syncs"] == 0, f"{uid}: {prof['syncs']} stream/event syncs in a step")
+    check(prof["h2d_copies"] == 0, f"{uid}: {prof['h2d_copies']} host-to-device copies in a step")
+    print(f"{uid} state x{n_envs}: {n_envs * n_steps / step_s:.1f} env-steps/s ({step_s / n_steps * 1e3:.2f} "
+          f"ms/step, eager); step profile {prof['launches']:.0f} launches, {prof['syncs']:.0f} stream/event "
+          f"syncs, {prof['h2d_copies']:.0f} host-to-device copies, device kernels {prof['device_kernel_ms']:.3f} "
+          f"ms of {prof['wall_ms']:.3f} ms (idle {prof['device_idle_share']:.3f}); contact.overflow max "
+          f"{overflow}; statics held {card}")
+    top = ", ".join(f"{k} {v:.3f}" for k, v in list(prof["top_kernels_ms"].items())[:5])
+    print(f"  top device kernels (ms per step): {top}")
+
+
+def ycb_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 19: PickSingleYCB-v1 rgb at 2048 envs. Returns the kernel's max
+    depth error against the plain version."""
+    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+
+    uid, n_envs, n_steps = YCB_RGB
+    kernel = tr.KERNEL
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
+    base = env.unwrapped
+    zero = torch.zeros(n_envs, 8, device=dev)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    print(f"{uid} rgb x{n_envs}: built and warmed up in {time.perf_counter() - t0:.2f} s")
+    cams = list(base._sensors)
+    kernel.launches = 0
+    obs, _ = env.reset(seed=0)
+    step_s = timed_steps(env, zero, n_steps - 1)
+    obs, *_ = env.step(zero)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(launches == len(cams) * (1 + n_steps),
+          f"{uid} rgb: kernel launches {launches} != cameras x (resets + steps) {len(cams) * (1 + n_steps)}")
+    check(int(base.scene.data.contact.overflow.max()) == 0, f"{uid} rgb: contact overflow")
+    err = 0.0
+    for cam_name in cams:
+        rgb = obs["sensor_data"][cam_name]["rgb"]
+        check(tuple(rgb.shape) == (n_envs, 128, 128, 3) and rgb.dtype == torch.uint8,
+              f"{uid} {cam_name} rgb is {tuple(rgb.shape)} {rgb.dtype}")
+        inputs, e, agree = rerender_check(base, cam_name, 16, tr, tiled_inputs, geom_poses, rgb,
+                                          f"{uid} {cam_name}")
+        err = max(err, e)
+        print(f"{uid} rgb {cam_name}: last frame of 16 envs re-rendered through the plain version: seg "
+              f"agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; faces in the scene {inputs[0].shape[1]}")
+        if cam_name == "base_camera":
+            table, valid = tr.face_records(*inputs)
+            idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+            before = kernel.launches
+            k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
+            p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
+            frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
+            kernel.launches = before
+            bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+            paths[f"pickycb_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                                bound_by=bound_by)
+            print(f"raster kernel (pick single ycb base camera, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain "
+                  f"{p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
+            print(f"pick single ycb tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; "
+                  f"faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())} {card}")
+            del table, idx, counts
+        del inputs
+    print(f"{uid} rgb x{n_envs}: {n_envs * n_steps / (step_s * n_steps / (n_steps - 1)):.1f} env-steps/s "
+          f"({step_s / (n_steps - 1) * 1e3:.2f} ms/step, eager), kernel launches {launches} "
+          f"({len(cams)} cameras) {card}")
+
+    # two envs with different models, set to one pose: their masks differ
+    ids = np.asarray(base.model_ids)
+    i, j = 0, int(np.nonzero(ids != ids[0])[0][0])
+    state = base.get_state_dict()
+    obj = state["actors"][base.obj.name].clone()
+    obj[j] = obj[i]
+    state["actors"][base.obj.name] = obj
+    base.set_state_dict(state)
+    seg = base._sensors["base_camera"].get_obs(rgb=False, segmentation=True,
+                                               hidden_actors=base._hidden_objects)["segmentation"][..., 0]
+    mask_i, mask_j = seg[i] == base.obj.per_scene_id, seg[j] == base.obj.per_scene_id
+    n_i, n_j, n_diff = int(mask_i.sum()), int(mask_j.sum()), int((mask_i != mask_j).sum())
+    check(n_i > 0 and n_j > 0 and n_diff > 0,
+          f"{uid}: envs {i} ({ids[i]}) and {j} ({ids[j]}) at one pose: masks of {n_i} and {n_j} px differ on "
+          f"{n_diff}")
+    print(f"{uid}: envs {i} ({ids[i]}) and {j} ({ids[j]}) at one object pose: masks of {n_i} and {n_j} px, "
+          f"differing on {n_diff} px")
+    return err
+
+
+def clutter_phase(torch, dev, make, card):
+    """Phase 20: PickClutterYCB-v1 state at 1024 envs, then 8 envs against
+    the JAX package's hull-hull contacts and overflow."""
+    from maniskill_tpu_torch import physics
+    from maniskill_tpu_torch.physics.types import HULL
+    from maniskill_tpu_torch.utils.timing import profile_calls, timed_steps
+
+    uid, n_envs, n_steps = CLUTTER
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev)
+    base = env.unwrapped
+    zero = torch.zeros(n_envs, 8, device=dev)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    print(f"{uid} x{n_envs}: built and warmed up in {time.perf_counter() - t0:.2f} s")
+    env.reset(seed=0)
+    step_s = timed_steps(env, zero, n_steps)
+    data = base.scene.data
+    check(bool(torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()), f"{uid}: state not finite")
+    overflow = data.contact.overflow
+    share, worst = float((overflow > 0).float().mean()), int(overflow.max())
+    _, prof = profile_calls(lambda: env.step(zero), 1)
+    check(prof["syncs"] == 0, f"{uid}: {prof['syncs']} stream/event syncs in a step")
+    check(prof["h2d_copies"] == 0, f"{uid}: {prof['h2d_copies']} host-to-device copies in a step")
+    print(f"{uid} state x{n_envs}: {n_envs * n_steps / step_s:.1f} env-steps/s ({step_s / n_steps * 1e3:.2f} "
+          f"ms/step, eager); step profile {prof['launches']:.0f} launches, {prof['syncs']:.0f} stream/event "
+          f"syncs, {prof['h2d_copies']:.0f} host-to-device copies, device kernels {prof['device_kernel_ms']:.3f} "
+          f"ms of {prof['wall_ms']:.3f} ms (idle {prof['device_idle_share']:.3f}); contact.overflow > 0 in "
+          f"{share:.6f} of the envs, max {worst} {card}")
+    del env, base, data
+    n = len(CLUTTER_JAX_OVERFLOW)
+    small = make(uid, num_envs=n, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev)
+    small.reset(seed=0)
+    # the hull-hull narrowphase on stacked objects, from the reset's state
+    sb = small.unwrapped
+    model, data = sb.scene.model, sb.scene.data
+    a0, a1 = (int(model.body_q_adr[o.body_id]) for o in sb.objs[:2])
+    qpos = data.qpos.clone()
+    qpos[:, a1:a1 + 3] = qpos[:, a0:a0 + 3] + torch.tensor(CLUTTER_STACK_OFFSET, device=dev)
+    contact = physics.forward(model, data.replace(qpos=qpos)).contact
+    gtype = np.asarray(model.geom_type.tolist())
+    hh = torch.as_tensor((gtype[contact.geom1] == HULL) & (gtype[contact.geom2] == HULL), device=dev)
+    depth = contact.depth[:, hh]
+    live = depth > -1e5  # dead rows hold BAD_DEPTH, -1e6
+    rows = live.sum(1).tolist()
+    deepest = torch.where(live, depth, -torch.inf).amax(1).cpu().numpy()
+    depth_err = float(np.abs(deepest - np.float32(CLUTTER_JAX_DEEPEST)).max())
+    check(rows == CLUTTER_JAX_HULL_ROWS, f"{uid} x{n}: live hull-hull contact rows per env {rows} != the JAX "
+                                         f"package's {CLUTTER_JAX_HULL_ROWS}")
+    check(depth_err <= CLUTTER_DEPTH_TOL, f"{uid} x{n}: deepest hull-hull contact per env {deepest.tolist()} "
+                                          f"off the JAX package's {CLUTTER_JAX_DEEPEST} by {depth_err:.3g} m")
+    print(f"{uid} x{n}, seed 0, second object at the first's +{list(CLUTTER_STACK_OFFSET)}: live hull-hull "
+          f"contact rows per env {rows}, equal to the JAX package's on the CPU; deepest per env within "
+          f"{depth_err:.3g} m of its (tolerance {CLUTTER_DEPTH_TOL}) {card}")
+    for _ in range(3):
+        small.step(torch.zeros(n, 8, device=dev))
+    got = small.unwrapped.scene.data.contact.overflow.tolist()
+    check(got == CLUTTER_JAX_OVERFLOW, f"{uid} x{n}: overflow per env {got} != the JAX package's "
+                                       f"{CLUTTER_JAX_OVERFLOW}")
+    print(f"{uid} x{n}, seed 0, 3 steps: overflow per env {got}, equal to the JAX package's on the CPU {card}")
 
 
 def main(device: str = "cuda"):
@@ -822,6 +1086,11 @@ def main(device: str = "cuda"):
 
     # ---- phases 16-17: the batched motion planner ----------------------------
     max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+
+    # ---- phases 18-20: convex hulls and per-env objects ----------------------
+    ycb_state_phase(torch, dev, make, card)
+    max_err = max(max_err, ycb_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    clutter_phase(torch, dev, make, card)
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

@@ -2,9 +2,9 @@
 (counterpart of maniskill_tpu/building/actor_builder.py).
 
 One call to ``build*`` creates ONE body in the shared kinematic forest; the
-env axis is a batch dim, so nothing is replicated. Primitive shapes plus
-mesh and textured visuals; the convex-hull collision adders are not ported
-yet.
+env axis is a batch dim, so nothing is replicated. Primitive shapes, convex
+hull proxies cooked from meshes (building/cooking.py), and mesh and
+textured visuals.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from ..physics.types import (
     DYNAMIC,
     FIXED,
     FREE,
+    HULL,
     KINEMATIC,
     MESH,
     PLANE,
@@ -82,6 +83,40 @@ class ActorBuilder:
 
     def add_plane_collision(self, pose=None, friction=0.3, restitution=None):
         return self._add("c", PLANE, [0, 0, 0], pose, 0.0, friction, None, restitution)
+
+    # -- mesh shapes: convex hull proxies ------------------------------------
+    def _add_hull(self, hull, pose, density, friction, color):
+        from .cooking import hull_face_dirs
+
+        self.collisions.append(dict(
+            type=HULL,
+            size=np.abs(hull).max(axis=0).astype(np.float64),
+            pose=_pose7(pose),
+            density=density,
+            friction=friction,
+            color=color,
+            hull=hull,
+            hull_dirs=hull_face_dirs(hull),
+        ))
+
+    def add_convex_collision_from_mesh(self, verts, faces=None, pose=None, density=1000.0, friction=0.3,
+                                       color=None):
+        """One convex hull proxy covering the whole mesh or point cloud; with
+        a ``color`` it is drawn as well."""
+        from .cooking import hull_proxy
+
+        self._add_hull(hull_proxy(np.asarray(verts, np.float32).reshape(-1, 3)), pose, density, friction, color)
+        return self
+
+    def add_multiple_convex_collisions_from_mesh(self, verts, faces, pose=None, density=1000.0, friction=0.3,
+                                                 max_parts: int = 8, color=None):
+        """An approximate convex decomposition: up to ``max_parts`` hull
+        proxies."""
+        from .cooking import decompose_mesh
+
+        for hull in decompose_mesh(verts, faces, max_parts=max_parts):
+            self._add_hull(hull, pose, density, friction, color)
+        return self
 
     def add_box_visual(self, pose=None, half_size=(0.1, 0.1, 0.1), material=None, color=None):
         return self._add("v", BOX, half_size, pose, 0.0, 0.0, _color(material, color))
@@ -163,7 +198,9 @@ class ActorBuilder:
             mb.mocap_bodies.append(body)
         else:
             shapes = [
-                (c["type"], c["size"], c["pose"][:3], c["pose"][3:], c["density"])
+                # a hull proxy's inertia is its AABB box's
+                (BOX if c["type"] == HULL else c["type"],
+                 c["size"], c["pose"][:3], c["pose"][3:], c["density"])
                 for c in self.collisions
                 if c["type"] != PLANE
             ]
@@ -207,7 +244,12 @@ class ActorBuilder:
                 contype=contype,
                 conaffinity=conaffinity,
                 name=f"{name}_col_{len(mb.geoms)}",
-                visual=False,
+                # hull colliders given a colour are drawn too (mesh objects
+                # with no separate visual geometry, e.g. YCB)
+                visual=c.get("color") is not None,
+                color=c.get("color") or (0.5, 0.5, 0.5, 1.0),
+                hull=c.get("hull"),
+                hull_dirs=c.get("hull_dirs"),
             )
         for v in self.visuals:
             gpose = v["pose"].copy()

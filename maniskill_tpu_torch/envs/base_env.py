@@ -50,6 +50,7 @@ class BaseEnv:
         sim_config: Union[SimConfig, dict, None] = None,
         sensor_configs: Optional[dict] = None,
         human_render_camera_configs: Optional[dict] = None,
+        reconfiguration_freq: Optional[int] = None,
         device: Union[str, torch.device, None] = None,
     ):
         self.device = torch.device(device if device is not None else "cuda")
@@ -65,6 +66,9 @@ class BaseEnv:
         self.robot_uids = robot_uids
         self._sensor_config_overrides = sensor_configs or {}
         self._human_render_camera_config_overrides = human_render_camera_configs or {}
+        # rebuild the scene every this many full resets (0: never)
+        self.reconfiguration_freq = reconfiguration_freq or 0
+        self._reconfig_counter = 0
 
         # arbitrary "+"-combos of visual modalities are valid obs modes
         known = {"rgb", "depth", "segmentation", "position", "normal", "albedo", "state"}
@@ -85,12 +89,12 @@ class BaseEnv:
         self._episode_seeds = torch.zeros(num_envs, dtype=torch.int64, device=self.device)
         self._main_rng: Optional[np.random.RandomState] = None
 
-        self._reconfigure()
+        self._reconfigure({})
         self.single_action_space = self.agent.single_action_space
         self.action_space = gym_utils.batch_space(self.single_action_space, num_envs)
 
         # first reset to derive the observation space
-        obs, _ = self.reset(seed=2022)
+        obs, _ = self.reset(seed=2022, options=dict(reconfigure=False))
         self.single_observation_space = gym_utils.convert_observation_to_space(obs)
         self.observation_space = gym_utils.batch_space(self.single_observation_space, num_envs)
 
@@ -124,7 +128,10 @@ class BaseEnv:
     # ==================================================================
     # reconfigure lifecycle
     # ==================================================================
-    def _reconfigure(self):
+    def _reconfigure(self, options: dict):
+        """Build the scene: agent, task objects, lighting, the model,
+        controllers, sensors, then the task's ``_after_reconfigure`` (per-env
+        tables written into the finished model) and the render meshes."""
         sc = self.sim_config.scene_config
         self.scene = ManiSkillScene(
             num_envs=self.num_envs,
@@ -135,7 +142,6 @@ class BaseEnv:
         )
         self.scene.sim_steps_per_control = self.sim_config.sim_steps_per_control
         self.scene.default_restitution = self.sim_config.default_materials_config.restitution
-        options: dict = {}
         self._load_agent(options)
         self._load_scene(options)
         self._load_lighting(options)
@@ -148,6 +154,7 @@ class BaseEnv:
         )
         self.agent._setup_controllers()
         self._setup_sensors()
+        self._after_reconfigure(options)
         # build the render meshes now, at construction time
         for cam in self._sensors.values():
             cam._get_mesh(tuple(self._hidden_objects))
@@ -169,6 +176,8 @@ class BaseEnv:
                 continue
             qa = int(model.body_q_adr[actor.body_id])
             data.qpos[:, qa : qa + 7] = torch.as_tensor(actor.initial_pose, device=self.device)
+        for name, (shape, dtype) in getattr(self.scene, "extra_specs", {}).items():
+            data.extras[name] = torch.zeros((self.num_envs,) + shape, dtype=dtype, device=self.device)
         return data
 
     def _load_agent(self, options: dict, initial_agent_poses=None):
@@ -183,6 +192,10 @@ class BaseEnv:
 
     def _load_scene(self, options: dict):
         pass
+
+    def _after_reconfigure(self, options: dict):
+        """Task hook run after the model is built, before the render meshes:
+        per-env tables (hulls, masses) are written here."""
 
     def _load_lighting(self, options: dict):
         self.scene.set_ambient_light([0.3, 0.3, 0.3])
@@ -236,6 +249,17 @@ class BaseEnv:
                 self._main_rng.randint(0, 2**31, size=self.num_envs).astype(np.int64), device=self.device
             )
         self._episode_seeds = torch.where(mask, new_seeds, self._episode_seeds)
+
+        # a rebuild of the scene: asked for, or every reconfiguration_freq-th
+        # full reset; it draws the task's objects from the main RNG just seeded
+        reconfigure = options.get("reconfigure", False)
+        if self.reconfiguration_freq > 0 and options.get("env_idx", None) is None:
+            self._reconfig_counter += 1
+            if self._reconfig_counter >= self.reconfiguration_freq:
+                reconfigure = True
+                self._reconfig_counter = 0
+        if reconfigure:
+            self._reconfigure(options)
 
         obs, info = self._reset_impl(mask, self._episode_seeds,
                                      options.get("reset_to_env_states", None))

@@ -14,7 +14,7 @@ import torch
 
 from ..physics import ModelBuilder
 from ..physics.plan import model_plan
-from ..physics.types import STATIC, Model
+from ..physics.types import HULL, STATIC, Model
 from ..structs.actor import Actor
 from ..structs.articulation import Articulation
 from ..structs.link import Link
@@ -95,6 +95,9 @@ class ManiSkillScene:
             np.stack([np.asarray(g.size, np.float32) for g in geoms])
             if geoms else np.zeros((0, 3), np.float32)
         )
+        hulls = [np.asarray(g.hull, np.float32) for g in geoms if g.type == HULL]
+        # (NH, V, 3), or (B, NH, V, 3) once set per env
+        self.host_hull_verts = np.stack(hulls) if hulls else None
         mocap_of = (
             {int(b): i for i, b in enumerate(self.model.mocap_bodies)}
             if self.model.mocap_bodies is not None else {}
@@ -159,6 +162,94 @@ class ManiSkillScene:
             drive_force_limit=put(m.drive_force_limit, force_limit),
         )
 
+    # -- heterogeneous per-env parameters --------------------------------
+    # A parameter table gains a leading env axis (B, ...) and the actor's
+    # rows are written per env; the step broadcasts either shape.
+    def _per_env(self, table: torch.Tensor, shared_ndim: int) -> torch.Tensor:
+        """``table`` with a leading env axis (a new tensor either way)."""
+        if table.ndim == shared_ndim:
+            return table.expand((self.num_envs,) + tuple(table.shape)).clone()
+        return table.clone()
+
+    def set_per_env_geom_sizes(self, actor, sizes):
+        """sizes: (B, n_geoms_of_actor, 3) host array, the actor's primitive
+        sizes in each env."""
+        gids = np.asarray(actor.geom_ids, np.int64)
+        sizes_np = np.asarray(sizes, np.float32)
+        gs = self._per_env(self.model.geom_size, 2)
+        gs[:, gids] = torch.as_tensor(sizes_np, device=self.device)
+        self.model = self.model.replace(geom_size=gs)
+        hs = self.host_geom_size
+        if hs.ndim == 2:
+            hs = np.broadcast_to(hs, (self.num_envs,) + hs.shape).copy()
+        hs[:, gids] = sizes_np
+        self.host_geom_size = hs
+
+    def set_per_env_hulls(self, actor, hulls):
+        """Per-env convex hull geometry of one actor (a different object in
+        each env).
+
+        hulls: (B, K, HULL_MAX_VERTS, 3) host array, the local vertex clouds
+        of the actor's K HULL geoms. Their facet normals are computed once
+        per distinct hull and gathered per env (``hull_face_dirs`` is
+        deterministic, so this equals computing them env by env).
+        """
+        from ..building.cooking import hull_face_dirs
+
+        geom_hull = np.asarray(self.model.geom_hull)
+        hids = geom_hull[[g for g in actor.geom_ids if geom_hull[g] >= 0]]
+        hulls_np = np.asarray(hulls, np.float32)
+        if len(hids) != hulls_np.shape[1] and len(hids) % hulls_np.shape[1] == 0:
+            # the actor lists its hulls twice (collision geoms and HULL visual
+            # geoms from the same specs, in order): the visuals follow
+            hulls_np = np.tile(hulls_np, (1, len(hids) // hulls_np.shape[1], 1, 1))
+        assert hulls_np.shape[1] == len(hids), (hulls_np.shape, len(hids))
+        if self.host_hull_verts is not None:
+            hv = self.host_hull_verts
+            if hv.ndim == 3:
+                hv = np.broadcast_to(hv, (self.num_envs,) + hv.shape).copy()
+            hv[:, hids] = hulls_np
+            self.host_hull_verts = hv
+        # distinct hulls keyed by their bytes (bit-identical inputs only)
+        first, inverse = {}, []
+        for h in hulls_np.reshape((-1,) + hulls_np.shape[2:]):
+            inverse.append(first.setdefault(h.tobytes(), len(first)))
+        uniq = np.frombuffer(b"".join(first), np.float32).reshape((-1,) + hulls_np.shape[2:])
+        uniq_dirs = np.stack([hull_face_dirs(h) for h in uniq])
+        dirs = uniq_dirs[np.asarray(inverse)].reshape(hulls_np.shape[:2] + uniq_dirs.shape[1:])
+        hv_t = self._per_env(self.model.hull_verts, 3)
+        hd_t = self._per_env(self.model.hull_dirs, 3)
+        hids_t = torch.as_tensor(hids.astype(np.int64), device=self.device)
+        hv_t[:, hids_t] = torch.as_tensor(hulls_np, device=self.device)
+        hd_t[:, hids_t] = torch.as_tensor(dirs, dtype=torch.float32, device=self.device)
+        self.model = self.model.replace(hull_verts=hv_t, hull_dirs=hd_t)
+
+    def set_per_env_body_mass(self, actor, mass):
+        """mass: (B,) host array, one body's mass in each env."""
+        bm = self._per_env(self.model.body_mass, 1)
+        bm[:, actor.body_id] = torch.as_tensor(np.asarray(mass, np.float32), device=self.device)
+        self.model = self.model.replace(body_mass=bm)
+
+    # -- task extras: persistent per-env state ---------------------------
+    def register_extra(self, name: str, shape=(), dtype=torch.float32):
+        """Declare a persistent per-env task variable (zero at the start,
+        cleared on reset, part of the sim state)."""
+        if not hasattr(self, "extra_specs"):
+            self.extra_specs = {}
+        self.extra_specs[name] = (tuple(shape), dtype)
+
+    def get_extra(self, name: str) -> torch.Tensor:
+        return self.data.extras[name]
+
+    def set_extra(self, name: str, value, masked: bool = True):
+        """Write an extra, where the reset mask allows unless ``masked`` is
+        False."""
+        cur = self.data.extras[name]
+        value = torch.as_tensor(value, device=self.device).to(cur.dtype).expand(cur.shape)
+        extras = dict(self.data.extras)
+        extras[name] = self.masked(value, cur) if masked else value
+        self.data = self.data.replace(extras=extras)
+
     # -- contact queries -------------------------------------------------
     def _body_ids_of(self, obj) -> List[int]:
         if isinstance(obj, (Actor, Link)):
@@ -215,6 +306,8 @@ class ManiSkillScene:
                 state["actors"][name] = actor.get_state()
         for name, art in self.articulations.items():
             state["articulations"][name] = art.get_state()
+        if self.data.extras:
+            state["extras"] = dict(self.data.extras)
         return state
 
     def set_sim_state(self, state: Dict):
@@ -222,3 +315,5 @@ class ManiSkillScene:
             self.actors[name].set_state(s)
         for name, s in state.get("articulations", {}).items():
             self.articulations[name].set_state(s)
+        for name, v in state.get("extras", {}).items():
+            self.set_extra(name, v)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ...utils.geometry import rotation_conversions as rc
@@ -250,6 +251,62 @@ def solve_pull_cube_tool(env):
     return mp.move_to_pose(_pose(_add(hook_lo, 0, -0.35), down), steps=80, refine_steps=8)
 
 
+def ycb_grasp_geometry(base):
+    """Per-env grasp parameters of PickSingleYCB's objects from their cooked
+    hulls, as host arrays: (yaw (B,), hull centre (B, 3), grasp height (B,),
+    world top (B,)), each float32. The hull clouds (the model's per-env
+    table) move to the world on the device; the one read of them and the
+    horizontal PCA are host numpy, once per solve."""
+    geom_hull = np.asarray(base.scene.model.geom_hull)
+    hids = geom_hull[base.obj.geom_ids]
+    hids = hids[hids >= 0]
+    # the object's hull slots are consecutive: a slice, so no index copy
+    assert (np.diff(hids) == 1).all(), hids
+    hv = base.scene.model.hull_verts[:, int(hids[0]):int(hids[-1]) + 1]  # (B, K, V, 3)
+    B = hv.shape[0]
+    pts_l = hv.reshape(B, -1, 3)
+    pose = base.obj.pose.raw_pose[:, None]  # (B, 1, 7)
+    pts_w = (pose[..., :3] + rc.quaternion_apply(pose[..., 3:], pts_l)).cpu().numpy()
+    ztop = pts_w[..., 2].max(axis=1)
+    # the long horizontal axis: the hand's x goes along it, so the closing
+    # axis (hand y) crosses the narrow extent
+    xy = pts_w[..., :2] - pts_w[..., :2].mean(axis=1, keepdims=True)
+    cov = np.einsum("bni,bnj->bij", xy, xy) / xy.shape[1]
+    _, evecs = np.linalg.eigh(cov)  # ascending
+    long_axis = evecs[..., -1]
+    yaw = np.arctan2(long_axis[:, 1], long_axis[:, 0]).astype(np.float32)
+    gz = np.clip(0.55 * ztop, 0.015, 0.055).astype(np.float32)
+    return yaw, pts_w.mean(axis=1).astype(np.float32), gz, ztop.astype(np.float32)
+
+
+def solve_pick_single_ycb(env):
+    """A geometry-aware top-down grasp of each env's YCB object (closing
+    across its narrow horizontal extent, low enough to fit the fingers'
+    span), then carry it to the goal site and hold still. The reference has
+    no scripted solution for this task; the flow mirrors PickCube's."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env)
+    mp.open_gripper(steps=3)
+    yaw, ctr, gz, ztop = ycb_grasp_geometry(base)
+    # one host-to-device copy of every per-env number
+    g = torch.as_tensor(np.concatenate([yaw[:, None], ctr, gz[:, None], ztop[:, None]], 1),
+                        device=base.device)
+    grasp_q = _yawed_down_q(g[:, 0], mp.down_q)
+    grasp = torch.cat([g[:, 1:3], g[:, 4:5]], -1)
+    mp.move_to_pose(_pose(_set(grasp, 2, g[:, 5] + 0.08), grasp_q), refine_steps=3)
+    mp.move_to_pose(_pose(grasp, grasp_q), refine_steps=5)
+    mp.close_gripper(steps=10)
+    # lift straight up before translating (clears the table for tall goals)
+    mp.move_to_pose(_pose(_add(grasp, 2, 0.10), grasp_q), refine_steps=2)
+    # carry by the measured grasp offset so the object's centre lands on the
+    # goal site; then measure once more (heavy objects sag in the grip)
+    goal_p = base.goal_site.pose.p
+    place = base.agent.tcp.pose.p + (goal_p - base.obj.pose.p)
+    mp.move_to_pose(_pose(place, grasp_q), refine_steps=6)
+    place = base.agent.tcp.pose.p + (goal_p - base.obj.pose.p)
+    return mp.move_to_pose(_pose(place, grasp_q), steps=20, refine_steps=8)
+
+
 SOLUTIONS = {
     "PushCube-v1": solve_push_cube,
     "PickCube-v1": solve_pick_cube,
@@ -259,4 +316,5 @@ SOLUTIONS = {
     "StackPyramid-v1": solve_stack_pyramid,
     "LiftPegUpright-v1": solve_lift_peg_upright,
     "PullCubeTool-v1": solve_pull_cube_tool,
+    "PickSingleYCB-v1": solve_pick_single_ycb,
 }

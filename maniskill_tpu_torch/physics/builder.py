@@ -331,10 +331,22 @@ class ModelBuilder:
             max_active = 0
 
         geoms = self.geoms
-        hulls = [g.name for g in geoms if g.type == HULL]
-        if hulls:
-            raise NotImplementedError(
-                f"convex hull proxies are not ported yet (geoms {hulls})"
+        # convex hull proxy tables (geom type HULL): geom -> hull id
+        from ..building.cooking import HULL_MAX_DIRS, HULL_MAX_VERTS
+
+        geom_hull = np.full(len(geoms), -1, np.int32)
+        hv_list, hd_list = [], []
+        for gi, g in enumerate(geoms):
+            if g.type != HULL:
+                continue
+            assert g.hull is not None, f"HULL geom {g.name} missing hull verts"
+            geom_hull[gi] = len(hv_list)
+            hv = np.asarray(g.hull, np.float32)
+            assert hv.shape == (HULL_MAX_VERTS, 3), hv.shape
+            hv_list.append(hv)
+            hd_list.append(
+                np.asarray(g.hull_dirs, np.float32) if g.hull_dirs is not None
+                else np.tile(np.array([[0, 0, 1.0]], np.float32), (HULL_MAX_DIRS, 1))
             )
         if self.drives:
             raise NotImplementedError("body-body 6-dof drives are not ported yet")
@@ -389,7 +401,9 @@ class ModelBuilder:
             geom_friction=np.asarray([g.friction for g in geoms], np.float32),
             geom_restitution=np.asarray([g.restitution for g in geoms], np.float32),
             gravity=self.gravity,
-            geom_hull=np.full(len(geoms), -1, np.int32),
+            geom_hull=geom_hull,
+            hull_verts=np.stack(hv_list) if hv_list else None,
+            hull_dirs=np.stack(hd_list) if hd_list else None,
             timestep=self.timestep,
             solver_iterations=self.solver_iterations,
             max_active_contacts=max_active,

@@ -8,9 +8,13 @@ call over a gathered (B, P, ...) pair axis. The groups and their index
 tensors are part of the model's device plan (``physics/plan.py``), so a
 substep copies nothing from the host.
 
-The convex-hull path (``_support_sat``, ``plane_hull``) is not ported: a
-model whose candidate pairs need it, or any other pair kind missing from
-``_DISPATCH``, raises in ``collide`` naming the pair.
+Convex hull proxies (geom type HULL) go through the support-function SAT
+(``_support_sat``; a primitive entering a hull pair becomes a vertex cloud
+with a margin radius) and ``plane_hull``. Their per-group hull ids and
+operand constants are in the device plan; the hull vertex and normal
+tables are read from the model at each call, since per-env tables are
+written after the plan may have been built. A pair kind with no
+narrowphase raises in ``collide`` naming the pair.
 
 Conventions: ``normal`` points from geom1 toward geom2 (the direction to push
 geom2 to separate; impulse +λ·n acts on body(geom2)); ``depth`` > 0 means
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.common import top_k_stable
@@ -384,6 +389,169 @@ def capsule_capsule(p1, q1, s1, p2, q2, s2) -> List[Cand]:
     return [(c1 + n * (r1[..., None] - 0.5 * depth[..., None]), n, depth)]
 
 
+# ======================================================================
+# convex hull narrowphase (geom type HULL): support-function SAT
+# ======================================================================
+# Convex shapes are vertex clouds (building/cooking.py). A primitive in a
+# hull pair becomes an equivalent cloud with a margin radius (sphere = 1
+# vertex + r, capsule = 2 + r, box = 8 corners, cylinder = 16 rim points).
+# The contact normal is the minimum-penetration axis over both clouds'
+# facet normals (each signed both ways) and the centre line; the manifold
+# is the 4 deepest vertices of the incident cloud along it.
+
+_BOX_CORNERS = np.array(
+    [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], np.float32
+)  # (8, 3)
+_CYL_RIM = np.stack(
+    [np.cos(np.pi / 4 * np.arange(8)), np.sin(np.pi / 4 * np.arange(8)), np.zeros(8)], -1
+).astype(np.float32)  # (8, 3)
+
+
+def hull_group_tables(t1: int, i1: np.ndarray, i2: np.ndarray, geom_hull: np.ndarray, device) -> dict:
+    """Device tables of one (t1, HULL) pair group, built once into the
+    model's plan: the hull ids of its HULL sides and the local vertex cloud
+    and facet normals of a primitive first side."""
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    P = len(i1)
+    out = {"h2": t(geom_hull[i2], torch.int64)}
+    if t1 == HULL:
+        out["h1"] = t(geom_hull[i1], torch.int64)
+    elif t1 == BOX:
+        out["verts1"] = t(_BOX_CORNERS)
+        out["dirs1"] = t(np.eye(3, dtype=np.float32)[None].repeat(P, 0))
+    elif t1 == CAPSULE:
+        out["verts1"] = t([[0.0, 0, -1], [0.0, 0, 1]])
+        out["dirs1"] = t(np.array([[[0.0, 0, 1]]], np.float32).repeat(P, 0))
+    elif t1 == CYLINDER:
+        out["verts1"] = t(np.concatenate([_CYL_RIM + [0, 0, 1.0], _CYL_RIM + [0, 0, -1.0]], 0))
+        out["dirs1"] = t(np.concatenate([_CYL_RIM[:4], [[0, 0, 1.0]]], 0)[None].repeat(P, 0))
+    elif t1 not in (PLANE, SPHERE):
+        raise ValueError(f"geom type {t1} cannot enter a hull pair")
+    return out
+
+
+def _hull_table(table: torch.Tensor, hid: torch.Tensor) -> torch.Tensor:
+    """Rows ``hid`` (P,) of a hull table (NH, N, 3) -> (P, N, 3), or of a
+    per-env one (B, NH, N, 3) -> (B, P, N, 3)."""
+    return table[:, hid] if table.ndim == 4 else table[hid]
+
+
+def _as_hull_operand(model: Model, ttype: int, tables: dict, side: int, size: torch.Tensor):
+    """(verts, dirs, margin) of one side of a hull pair: local verts
+    (B, P, V, 3) or (P, V, 3), facet normals (P, D, 3) or (B, P, D, 3) or
+    None, margin radius (B, P) or None (zero)."""
+    if ttype == HULL:
+        hid = tables[f"h{side}"]
+        return _hull_table(model.hull_verts, hid), _hull_table(model.hull_dirs, hid), None
+    if ttype == BOX:
+        return tables["verts1"] * size[..., None, :], tables["dirs1"], None
+    if ttype == SPHERE:
+        return torch.zeros_like(size[..., None, :]), None, size[..., 0]
+    if ttype == CAPSULE:
+        return tables["verts1"] * size[..., 1:2, None], tables["dirs1"], size[..., 0]
+    if ttype == CYLINDER:
+        scale = torch.stack([size[..., 0], size[..., 0], size[..., 1]], -1)  # (B, P, 3)
+        return tables["verts1"] * scale[..., None, :], tables["dirs1"], None
+    raise ValueError(f"geom type {ttype} cannot enter a hull pair")
+
+
+def _world_cloud(p, q, v):
+    """Local cloud (P, V, 3) or (B, P, V, 3) at poses p (B, P, 3), q (B, P, 4)."""
+    v = v.expand(p.shape[:2] + v.shape[-2:])
+    return p[:, :, None] + rc.quaternion_apply(q[:, :, None], v)
+
+
+def _pad_verts(x: torch.Tensor, V: int) -> torch.Tensor:
+    """Pad axis 2 of x (B, P, n, ...) to V by repeating its first entry."""
+    if x.shape[2] == V:
+        return x
+    return torch.cat([x] + [x[:, :, :1]] * (V - x.shape[2]), 2)
+
+
+def _support_sat(pA, qA, vA, dA, rA, pB, qB, vB, dB, rB) -> List[Cand]:
+    """Generic convex-convex narrowphase: HULL_CONTACTS candidates.
+
+    pX (B,P,3), qX (B,P,4), vX local verts (B,P,V,3) or (P,V,3), dX local
+    candidate normals (P,D,3), (B,P,D,3) or None, rX margin (B,P) or None.
+    """
+    B, P = pA.shape[:2]
+    wA = _world_cloud(pA, qA, vA)  # (B, P, VA, 3)
+    wB = _world_cloud(pB, qB, vB)
+    zero = torch.zeros_like(pA[..., 0])
+    r2 = ((zero if rA is None else rA) + (zero if rB is None else rB))[:, :, None]
+
+    def wdirs(q, d):
+        d = d[None] if d.ndim == 3 else d
+        d = d.expand((B, P) + d.shape[-2:])
+        return rc.quaternion_apply(q[:, :, None], d)
+
+    cands = []
+    nA = 0
+    if dA is not None:
+        cands.append(wdirs(qA, dA))
+        nA = dA.shape[-2]
+    if dB is not None:
+        cands.append(wdirs(qB, dB))
+    cl = pB - pA
+    cands.append((cl / torch.clamp(_norm(cl, keepdim=True), min=1e-9))[:, :, None])
+    dirs = torch.cat(cands, 2)  # (B, P, D, 3)
+    D = dirs.shape[2]
+
+    dotA = torch.einsum("bpvk,bpdk->bpdv", wA, dirs)
+    dotB = torch.einsum("bpvk,bpdk->bpdv", wB, dirs)
+    # penetration pushing B along +d / along -d
+    penP = dotA.amax(-1) - dotB.amin(-1) + r2
+    penN = dotB.amax(-1) - dotA.amin(-1) + r2
+    pen2 = torch.cat([penP, penN], -1)  # (B, P, 2D)
+    k = torch.argmin(pen2, -1)  # the first minimum, as jnp.argmin
+    pen = torch.gather(pen2, -1, k[..., None])[..., 0]
+    is_neg = k >= D
+    kd = torch.where(is_neg, k - D, k)
+    dstar = torch.gather(dirs, 2, kd[..., None, None].expand(B, P, 1, 3))[:, :, 0]
+    n = torch.where(is_neg[..., None], -dstar, dstar)  # (B, P, 3) pushes B out
+
+    # supports along n; per-vertex penetration of each cloud into the other
+    ndotA = torch.einsum("bpvk,bpk->bpv", wA, n)
+    ndotB = torch.einsum("bpvk,bpk->bpv", wB, n)
+    depthB_v = ndotA.amax(-1)[..., None] + r2 - ndotB  # B verts into A
+    depthA_v = ndotA + r2 - ndotB.amin(-1)[..., None]  # A verts into B
+
+    # incident cloud: an axis from A's facet normals makes A's face the
+    # reference and B incident; B's normals and the centre line make A
+    # incident
+    fromA = kd < nA  # (B, P)
+    V = max(wA.shape[2], wB.shape[2])
+    depth_v = torch.where(fromA[..., None], _pad_verts(depthB_v, V), _pad_verts(depthA_v, V))
+    verts_v = torch.where(fromA[..., None, None], _pad_verts(wB, V), _pad_verts(wA, V))
+    kk = min(HULL_CONTACTS, V)
+    top_d, top_i = top_k_stable(depth_v, kk)  # (B, P, kk)
+    top_v = torch.gather(verts_v, 2, top_i[..., None].expand(top_i.shape + (3,)))
+    separated = pen < -MARGIN
+    out = [(top_v[:, :, i], n, torch.where(separated, BAD_DEPTH, top_d[..., i])) for i in range(kk)]
+    while len(out) < HULL_CONTACTS:
+        out.append((top_v[:, :, 0], n, torch.full_like(pen, BAD_DEPTH)))
+    return out
+
+
+def plane_hull(model: Model, tables: dict, p1, q1, s1, p2, q2, s2) -> List[Cand]:
+    """Plane vs convex hull: the 4 deepest proxy vertices below the plane."""
+    n = _plane_normal(q1)
+    w = _world_cloud(p2, q2, _hull_table(model.hull_verts, tables["h2"]))  # (B, P, V, 3)
+    depth = -torch.sum((w - p1[:, :, None]) * n[:, :, None], -1)  # (B, P, V)
+    top_d, top_i = top_k_stable(depth, 4)
+    top_w = torch.gather(w, 2, top_i[..., None].expand(top_i.shape + (3,)))
+    return [(top_w[:, :, i], n, top_d[..., i]) for i in range(4)]
+
+
+def hull_pair(model: Model, tables: dict, t1: int, p1, q1, s1, p2, q2, s2) -> List[Cand]:
+    """(SPHERE | BOX | CAPSULE | CYLINDER | HULL) vs HULL."""
+    vA, dA, rA = _as_hull_operand(model, t1, tables, 1, s1)
+    vB, dB, rB = _as_hull_operand(model, HULL, tables, 2, s2)
+    return _support_sat(p1, q1, vA, dA, rA, p2, q2, vB, dB, rB)
+
+
 # (type1, type2) -> fn(p1, q1, s1, p2, q2, s2) -> [(pos, normal, depth), ...]
 _DISPATCH: Dict[Tuple[int, int], Callable] = {
     (PLANE, SPHERE): plane_sphere,
@@ -413,8 +581,14 @@ def collide(model: Model, data: Data, kin=None) -> Contact:
     dev = data.qpos.device
     plan = model_plan(model)
     fns = []
-    for t1, t2, _, _ in plan.pair_groups:
-        fn = _DISPATCH.get((t1, t2))
+    for gi, (t1, t2, _, _) in enumerate(plan.pair_groups):
+        tables = plan.hull_tables.get(gi)
+        if tables is not None and t1 == PLANE:
+            fn = _bind(plane_hull, model, tables)
+        elif tables is not None:
+            fn = _bind(hull_pair, model, tables, t1)
+        else:
+            fn = _DISPATCH.get((t1, t2))
         if fn is None:
             raise NotImplementedError(
                 f"narrowphase for {_TYPE_NAMES.get(t1, t1)}-{_TYPE_NAMES.get(t2, t2)} "
@@ -467,3 +641,7 @@ def collide(model: Model, data: Data, kin=None) -> Contact:
         impulse=torch.zeros(B, C, 3, device=dev),
         overflow=torch.zeros(B, dtype=torch.int32, device=dev),
     )
+
+
+def _bind(fn, *head):
+    return lambda *args: fn(*head, *args)

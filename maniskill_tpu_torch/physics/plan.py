@@ -6,7 +6,9 @@ traced step, where they become constants. An eager torch step cannot do
 that without a host-to-device copy per call, so ``model_plan`` builds them
 on the first use of a model and keeps them on it (``Model.replace`` carries
 the plan over unless a field it reads changes). The step then copies
-nothing from the host.
+nothing from the host. The plan holds the hull pairs' hull ids, never the
+hull tables themselves: those may be rewritten per env after the plan is
+built (``scene.set_per_env_hulls``), so the step reads them from the model.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .types import FIXED, FREE, HINGE, JOINT_NV, KINEMATIC, SLIDE, Contact, Model
+from .types import FIXED, FREE, HINGE, HULL, JOINT_NV, KINEMATIC, SLIDE, Contact, Model
 
 
 class ModelPlan:
@@ -116,7 +118,7 @@ class ModelPlan:
 
         # ---- candidate pairs grouped by (type1, type2), in the reference's
         # order, and the candidate set's geom ids ----
-        from .collision import contacts_per_pair  # collision reads this module's plans
+        from .collision import contacts_per_pair, hull_group_tables  # collision reads this module's plans
 
         groups: Dict[tuple, list] = {}
         gtype = np.asarray(model.geom_type)
@@ -124,10 +126,14 @@ class ModelPlan:
             g1, g2 = int(g1), int(g2)
             groups.setdefault((int(gtype[g1]), int(gtype[g2])), []).append((g1, g2))
         self.pair_groups = []  # (type1, type2, geom1 ids, geom2 ids)
+        self.hull_tables: Dict[int, dict] = {}  # group index -> its hull ids and operand constants
         g1_l, g2_l = [], []
         for (t1, t2), pairs in sorted(groups.items()):
             i1 = np.array([p[0] for p in pairs], np.int64)
             i2 = np.array([p[1] for p in pairs], np.int64)
+            if t2 == HULL:
+                self.hull_tables[len(self.pair_groups)] = hull_group_tables(
+                    t1, i1, i2, np.asarray(model.geom_hull), device)
             self.pair_groups.append((t1, t2, t(i1), t(i2)))
             n = contacts_per_pair(t1, t2)
             g1_l += [i1.astype(np.int32)] * n

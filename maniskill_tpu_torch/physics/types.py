@@ -86,7 +86,7 @@ class Model(_Replace):
     jnt_axis: torch.Tensor  # (nbody, 3) local joint axis
     body_ipos: torch.Tensor  # (nbody, 3) COM offset in body frame
     body_iquat: torch.Tensor  # (nbody, 4) principal-inertia frame
-    body_mass: torch.Tensor  # (nbody,)
+    body_mass: torch.Tensor  # (nbody,) or per env (B, nbody)
     body_gravcomp: torch.Tensor  # (nbody,) 1.0 = gravity-free
     body_inertia: torch.Tensor  # (nbody, 3) principal moments
     dof_damping: torch.Tensor  # (nv,)
@@ -128,8 +128,11 @@ class Model(_Replace):
     drive6_damping: Optional[torch.Tensor] = None
     drive6_force_limit: Optional[torch.Tensor] = None
 
-    hull_verts: Optional[torch.Tensor] = None
-    hull_dirs: Optional[torch.Tensor] = None
+    # convex hull proxies (geom type HULL): local vertex clouds padded to
+    # HULL_MAX_VERTS by repeating the first vertex, and facet normals;
+    # shared (NH, ., 3) or per env (B, NH, ., 3)
+    hull_verts: Optional[torch.Tensor] = None  # (NH, MAXV, 3) | (B, NH, MAXV, 3)
+    hull_dirs: Optional[torch.Tensor] = None  # (NH, MAXD, 3) | (B, NH, MAXD, 3)
     geom_restitution: Optional[torch.Tensor] = None  # (ngeom,) or (B, ngeom)
     bounce_threshold: float = 2.0
     geom_hull: Optional[np.ndarray] = None  # (ngeom,) i32 hull id or -1
@@ -208,7 +211,7 @@ _INT_FIELDS = {"nq", "nv", "nbody", "ngeom", "solver_iterations", "max_active_co
 _PLAN_FIELDS = {
     "nv", "nbody", "body_parent", "body_jnt_type", "body_q_adr", "body_dof_adr",
     "body_type", "geom_body", "geom_type", "pair_geom1", "pair_geom2", "dof_body",
-    "dof_is_rot", "dof_limited", "ancestor_mask", "mocap_bodies",
+    "dof_is_rot", "dof_limited", "ancestor_mask", "mocap_bodies", "geom_hull",
 }
 _FLOAT_FIELDS = {
     "timestep", "contact_slop", "baumgarte", "max_correction_vel",

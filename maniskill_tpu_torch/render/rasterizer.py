@@ -47,11 +47,14 @@ class SceneMesh:
 
     Per-geom meshes are concatenated; verts are stored in geom-local coords
     with a per-vertex geom index, so the world transform is one gather +
-    quaternion rotate per frame.
+    quaternion rotate per frame. Where geometry differs between envs
+    (per-env hulls or primitive sizes) the local table is per env,
+    (B, V, 3), over one face table shared by every env.
     """
 
     def __init__(self, verts, faces, vert_geom, face_geom, face_color, face_seg, device):
-        self.verts = torch.as_tensor(np.asarray(verts, np.float32), device=device)  # (V, 3)
+        # (V, 3) shared local verts, or (B, V, 3) per env
+        self.verts = torch.as_tensor(np.asarray(verts, np.float32), device=device)
         self.faces = np.asarray(faces, np.int64)  # (F, 3) vertex ids (static)
         self.vert_geom = np.asarray(vert_geom)  # (V,) geom id (static)
         self.face_geom = np.asarray(face_geom)  # (F,)
@@ -81,6 +84,8 @@ class SceneMesh:
             for link in art.links:
                 seg_of_body[link.body_id] = link.per_scene_id or 0
 
+        hull_verts = getattr(scene, "host_hull_verts", None)
+        per_env = []  # (vertex offset, (B, n, 3) local verts) of per-env geoms
         for g, gdef in enumerate(scene.mb.geoms):
             if not gdef.visual or gdef.body in exclude_body_ids:
                 continue
@@ -89,7 +94,17 @@ class SceneMesh:
                 v = np.asarray(v, np.float32)
                 f = np.asarray(f, np.int32)
             elif gdef.type == HULL:
-                raise NotImplementedError(f"hull visual {gdef.name} is not ported yet")
+                # one sphere topology morphed onto each hull: per-env hulls
+                # share the faces and differ only in vertex positions
+                from ..building.cooking import support_morph_mesh
+
+                v, f = support_morph_mesh(hull_verts[..., int(model.geom_hull[g]), :, :])
+            elif geom_size.ndim == 3:
+                # per-env primitive sizes: the same topology, per-env verts
+                sizes = geom_size[:, g]
+                v, f = geom_mesh(gdef.type, sizes[0])
+                if not (sizes == sizes[0]).all():
+                    v = np.stack([geom_mesh(gdef.type, sz)[0] for sz in sizes])
             else:
                 v, f = geom_mesh(gdef.type, geom_size[g])
             fc = getattr(gdef, "face_colors", None)
@@ -97,7 +112,12 @@ class SceneMesh:
                 fc = np.asarray(fc, np.float32)
             else:
                 fc = np.tile(np.asarray(gdef.color[:3], np.float32), (len(f), 1))
+            if v.ndim == 3:
+                per_env.append((voff, v))
+                v = v[0]  # env 0's row stands in the shared table
             if len(f) > 8:
+                # per-env geometry orders its faces by env 0's, as the JAX
+                # package does (its comment says the across-env mean)
                 order = _spatial_face_order(v, f)
                 f = f[order]
                 fc = fc[order]
@@ -116,8 +136,14 @@ class SceneMesh:
             fgeom_l = [np.zeros(1, np.int32)]
             fcol_l = [np.zeros((1, 3), np.float32)]
             fseg_l = [np.zeros(1, np.int32)]
+        verts = np.concatenate(verts_l)
+        if per_env:
+            # promote the local table to (B, V, 3) and patch the per-env spans
+            verts = np.broadcast_to(verts, (per_env[0][1].shape[0],) + verts.shape).copy()
+            for off, v in per_env:
+                verts[:, off : off + v.shape[1]] = v
         return cls(
-            np.concatenate(verts_l),
+            verts,
             np.concatenate(faces_l),
             np.concatenate(vgeom_l),
             np.concatenate(fgeom_l),
@@ -130,7 +156,7 @@ class SceneMesh:
         """Local verts to world: gpos/gquat (B, ngeom, ...) -> (B, V, 3)."""
         vp = gpos[:, self._vert_geom_t]
         vq = gquat[:, self._vert_geom_t]
-        return vp + rc.quaternion_apply(vq, self.verts[None])
+        return vp + rc.quaternion_apply(vq, self.verts if self.verts.ndim == 3 else self.verts[None])
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Per-vertex (B, V, ...) -> per-face corner (B, F, 3, ...)."""

@@ -124,5 +124,10 @@ class Actor:
         self.set_linear_velocity(state[..., 7:10])
         self.set_angular_velocity(state[..., 10:13])
 
+    @property
+    def geom_ids(self) -> np.ndarray:
+        """The ids of this actor's geoms in the model."""
+        return np.nonzero(np.asarray(self.scene.model.geom_body) == self.body_id)[0]
+
     def __repr__(self):
         return f"Actor({self.name}, body={self.body_id}, {self.px_body_type})"

@@ -123,6 +123,64 @@ def test_pick_cube_rgb_through_the_kernel(cuda):
     assert (sp >= 0).float().mean() > 0.5
 
 
+def test_pick_single_ycb_state_step_makes_no_sync(cuda):
+    """PickSingleYCB-v1 state on the card (a different convex-hull object in
+    each env): a control step makes no host sync; the state stays finite and
+    no contact is dropped."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    n = 16
+    env = make("PickSingleYCB-v1", num_envs=n, obs_mode="state", control_mode="pd_joint_delta_pos",
+               device=cuda)
+    base = env.unwrapped
+    zero = torch.zeros(n, 8, device=cuda)
+    env.reset(seed=0)
+    env.step(zero)  # builds the lazy tables (contact signs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        obs, *_ = env.step(zero)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    data = base.scene.data
+    assert base.scene.model.hull_verts.shape[0] == n and len(set(base.model_ids)) > 1
+    assert obs.is_cuda and torch.isfinite(obs).all()
+    assert torch.isfinite(data.qpos).all() and torch.isfinite(data.qvel).all()
+    assert data.contact.overflow.tolist() == [0] * n
+
+
+def test_pick_single_ycb_rgb_through_the_kernel(cuda):
+    """One PickSingleYCB-v1 rgb frame over per-env hull meshes goes through
+    the kernel once per camera; re-rendered through the plain version its
+    rgb is equal and the object's segmentation id is present."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    n = 4
+    env = make("PickSingleYCB-v1", num_envs=n, obs_mode="rgb", control_mode="pd_joint_delta_pos",
+               device=cuda)
+    base = env.unwrapped
+    launches = tr.KERNEL.launches
+    obs, _ = env.reset(seed=0)
+    assert tr.KERNEL.launches == launches + len(base._sensors)
+    cam = base._sensors["base_camera"]
+    mesh = cam._get_mesh(tuple(base._hidden_objects))
+    assert mesh.verts.ndim == 3 and mesh.verts.shape[0] == n
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj,
+                          128, 128, lights=base.scene.lights)
+    _, sk, _, dk = tr.rasterize_tiles(*inputs, 128, 128)
+    _, sp, rp, dp = tr.rasterize_tiles_ref(*inputs, 128, 128)
+    assert int(dp) == int(dk) == 0
+    assert torch.equal(sk, sp)
+    assert torch.equal((torch.clamp(rp, 0, 1) * 255).to(torch.uint8), obs["sensor_data"]["base_camera"]["rgb"])
+    assert bool((sp == base.obj.per_scene_id).any(-1).any(-1).all())
+
+
 def test_pick_cube_depth_and_segmentation_match_plain(cuda):
     """rgb+depth+segmentation through the kernel: the int16 depth equals the
     plain version's, background (0) included; segmentation agrees."""
