@@ -2,8 +2,8 @@
 
 An agent owns one Articulation plus a registry of controller configs keyed by
 control mode. Robots are defined by a procedural ``build_description()``
-(LinkSpec list); the URDF/MJCF loaders and the multi-agent wrapper are not
-ported yet.
+(LinkSpec list); the URDF/MJCF loaders are not ported yet. ``MultiAgent``
+drives several robots of one scene with dict actions keyed by agent name.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from ..structs.articulation import Articulation
 from ..structs.pose import Pose
+from ..utils import gym_utils
 from .controllers import BaseController, CombinedController
 
 if TYPE_CHECKING:
@@ -163,3 +164,72 @@ class BaseAgent:
 
     def is_static(self, threshold: float = 0.2):
         return torch.amax(torch.abs(self.robot.qvel), 1) <= threshold
+
+
+class MultiAgent:
+    """Several agents of one scene, keyed by their names (``uid-i``): dict
+    action spaces, dict actions and per-agent proprioception."""
+
+    def __init__(self, agents):
+        self.agents = agents
+
+    @property
+    def action_space(self):
+        return gym_utils.Dict({a.name: a.action_space for a in self.agents})
+
+    @property
+    def single_action_space(self):
+        return self.action_space
+
+    def set_action(self, action):
+        for a in self.agents:
+            a.set_action(action[a.name])
+
+    def before_simulation_step(self, data, substep):
+        for a in self.agents:
+            data = a.before_simulation_step(data, substep)
+        return data
+
+    def get_proprioception(self):
+        return {a.name: a.get_proprioception() for a in self.agents}
+
+    def reset(self, init_qpos=None):
+        for a in self.agents:
+            a.reset()
+
+    def get_state(self):
+        return {a.name: a.get_state() for a in self.agents}
+
+    def set_state(self, state):
+        for a in self.agents:
+            a.set_state(state[a.name])
+
+    def _setup_controllers(self):
+        for a in self.agents:
+            a._setup_controllers()
+
+    @property
+    def controller(self):
+        """A view that resets, reads and writes every agent's controller, so
+        env code treats a MultiAgent as one agent."""
+        return _ControllersView(self.agents)
+
+    @property
+    def control_mode(self):
+        return {a.name: a.control_mode for a in self.agents}
+
+
+class _ControllersView:
+    def __init__(self, agents):
+        self._agents = agents
+
+    def reset(self):
+        for a in self._agents:
+            a.controller.reset()
+
+    def get_state(self):
+        return {a.name: a.controller.get_state() for a in self._agents}
+
+    def set_state(self, state):
+        for a in self._agents:
+            a.controller.set_state(state.get(a.name, {}))

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import physics as phys
-from ..agents.base_agent import BaseAgent
+from ..agents.base_agent import BaseAgent, MultiAgent
 from ..agents.registration import get_agent_class
 from ..structs.types import SimConfig, merge_sim_config
 from ..utils import common, gym_utils
@@ -181,14 +181,22 @@ class BaseEnv:
         return data
 
     def _load_agent(self, options: dict, initial_agent_poses=None):
-        uid = self.robot_uids
-        if uid is None:
+        """One agent, or with a list of robot uids a ``MultiAgent`` whose
+        agent i is named ``uid-i`` and stands at ``initial_agent_poses[i]``."""
+        uids = self.robot_uids
+        if uids is None:
             raise NotImplementedError("robot-free envs are not ported yet")
-        if isinstance(uid, (list, tuple)):
-            raise NotImplementedError("multi-agent envs are not ported yet")
-        cls = uid if isinstance(uid, type) else get_agent_class(uid)
-        self.agent = cls(self.scene, control_mode=self._control_mode,
-                         initial_pose=initial_agent_poses)
+        if not isinstance(uids, (list, tuple)):
+            uids, initial_agent_poses = [uids], [initial_agent_poses]
+        agents = []
+        for i, uid in enumerate(uids):
+            cls = uid if isinstance(uid, type) else get_agent_class(uid)
+            pose = None
+            if initial_agent_poses is not None and i < len(initial_agent_poses):
+                pose = initial_agent_poses[i]
+            agents.append(cls(self.scene, control_mode=self._control_mode,
+                              agent_idx=i if len(uids) > 1 else None, initial_pose=pose))
+        self.agent = agents[0] if len(agents) == 1 else MultiAgent(agents)
 
     def _load_scene(self, options: dict):
         pass
@@ -206,8 +214,9 @@ class BaseEnv:
         from ..sensors.camera import Camera, parse_camera_configs, update_camera_configs_from_dict
 
         configs = parse_camera_configs(self._default_sensor_configs)
-        # cameras the robot carries (a wrist camera)
-        configs.update(parse_camera_configs(getattr(self.agent, "_sensor_configs", [])))
+        # cameras the robots carry (a wrist camera)
+        for agent in getattr(self.agent, "agents", [self.agent]):
+            configs.update(parse_camera_configs(getattr(agent, "_sensor_configs", [])))
         update_camera_configs_from_dict(configs, self._sensor_config_overrides)
         self._sensor_configs = configs
         self._sensors = {name: Camera(cfg, self.scene) for name, cfg in configs.items()}
@@ -323,10 +332,13 @@ class BaseEnv:
     # step
     # ==================================================================
     def step(self, action):
-        action = common.to_tensor(action, device=self.device, dtype=torch.float32)
-        shape = tuple(self.single_action_space.shape)
-        if action.ndim == len(shape):
-            action = action.expand((self.num_envs,) + shape)
+        """One control step. A multi-agent env takes a dict of actions keyed
+        by agent name; an unbatched action is broadcast to every env."""
+        space = self.single_action_space
+        if isinstance(action, dict):
+            action = {k: self._batched_action(v, space[k].shape) for k, v in action.items()}
+        else:
+            action = self._batched_action(action, space.shape)
         obs, reward, terminated, info = self._step_impl(action)
         self._elapsed_steps = self._elapsed_steps + 1
         truncated = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
@@ -334,8 +346,15 @@ class BaseEnv:
         info["elapsed_steps"] = self._elapsed_steps
         return obs, reward, terminated, truncated, info
 
-    def _step_impl(self, action: torch.Tensor):
-        """One control step of a (num_envs, A) action on the scene's state:
+    def _batched_action(self, action, shape) -> torch.Tensor:
+        action = common.to_tensor(action, device=self.device, dtype=torch.float32)
+        if action.ndim == len(shape):
+            action = action.expand((self.num_envs,) + tuple(shape))
+        return action
+
+    def _step_impl(self, action):
+        """One control step of a (num_envs, A) action (a dict of them for a
+        multi-agent env) on the scene's state:
         (obs, reward, terminated, info). Elapsed steps are the caller's."""
         scene = self.scene
         scene._reset_mask = None

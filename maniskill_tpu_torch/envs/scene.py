@@ -171,10 +171,12 @@ class ManiSkillScene:
             return table.expand((self.num_envs,) + tuple(table.shape)).clone()
         return table.clone()
 
-    def set_per_env_geom_sizes(self, actor, sizes):
-        """sizes: (B, n_geoms_of_actor, 3) host array, the actor's primitive
-        sizes in each env."""
-        gids = np.asarray(actor.geom_ids, np.int64)
+    def set_per_env_geom_sizes(self, geom_ids, sizes):
+        """sizes: (B, K, 3) host array, the primitive sizes of geoms
+        ``geom_ids`` (K,) in each env. The render mirror follows, so a visual
+        geom written here is drawn at its per-env size; a collision geom
+        changes only the physics."""
+        gids = np.asarray(geom_ids, np.int64)
         sizes_np = np.asarray(sizes, np.float32)
         gs = self._per_env(self.model.geom_size, 2)
         gs[:, gids] = torch.as_tensor(sizes_np, device=self.device)
@@ -184,6 +186,15 @@ class ManiSkillScene:
             hs = np.broadcast_to(hs, (self.num_envs,) + hs.shape).copy()
         hs[:, gids] = sizes_np
         self.host_geom_size = hs
+
+    def set_per_env_geom_pos(self, geom_ids, pos):
+        """pos: (B, K, 3) host array, the offsets of geoms ``geom_ids`` (K,)
+        in their body's frame in each env. ``geom_poses`` reads the table
+        from the model on each call."""
+        gids = np.asarray(geom_ids, np.int64)
+        gp = self._per_env(self.model.geom_pos, 2)
+        gp[:, gids] = torch.as_tensor(np.asarray(pos, np.float32), device=self.device)
+        self.model = self.model.replace(geom_pos=gp)
 
     def set_per_env_hulls(self, actor, hulls):
         """Per-env convex hull geometry of one actor (a different object in

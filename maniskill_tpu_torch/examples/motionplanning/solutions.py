@@ -12,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from ...structs.pose import Pose
 from ...utils.geometry import rotation_conversions as rc
 from .panda_solver import PandaMotionPlanningSolver, device_vector
 
@@ -44,11 +45,28 @@ def _yawed_down_q(yaw: torch.Tensor, down_q: torch.Tensor) -> torch.Tensor:
     return rc.quaternion_multiply(qz, down_q.expand(qz.shape))
 
 
+def _yaw_of(q: torch.Tensor) -> torch.Tensor:
+    """The yaw (B,) of wxyz quaternions (B, 4)."""
+    return torch.atan2(2 * (q[:, 0] * q[:, 3] + q[:, 1] * q[:, 2]), 1 - 2 * (q[:, 2] ** 2 + q[:, 3] ** 2))
+
+
 def _cube_yaw(q: torch.Tensor) -> torch.Tensor:
     """A cube's yaw folded to the nearest face-aligned grip angle in
     [-pi/4, pi/4)."""
-    yaw = torch.atan2(2 * (q[:, 0] * q[:, 3] + q[:, 1] * q[:, 2]), 1 - 2 * (q[:, 2] ** 2 + q[:, 3] ** 2))
-    return (yaw + math.pi / 4) % (math.pi / 2) - math.pi / 4
+    return (_yaw_of(q) + math.pi / 4) % (math.pi / 2) - math.pi / 4
+
+
+def _x_offset(dx, like: torch.Tensor) -> Pose:
+    """Poses (B,) that shift by ``dx`` (a float or (B,)) along their x axis,
+    made on ``like``'s device with no host copy."""
+    p = torch.zeros(like.shape[0], 3, device=like.device)
+    if isinstance(dx, torch.Tensor):
+        p[:, 0] = dx
+    else:
+        p[:, 0:1].fill_(dx)
+    q = torch.zeros(like.shape[0], 4, device=like.device)
+    q[:, 0:1].fill_(1.0)
+    return Pose(torch.cat([p, q], -1))
 
 
 def solve_push_cube(env):
@@ -307,6 +325,86 @@ def solve_pick_single_ycb(env):
     return mp.move_to_pose(_pose(place, grasp_q), steps=20, refine_steps=8)
 
 
+
+def solve_peg_insertion_side(env):
+    """Grasp the peg toward its tail, carry it in front of the hole, correct
+    its residual error three times, and push it in."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env, joint_vel_limit=0.9)
+    mp.open_gripper(steps=3)
+
+    L = base.peg_half_sizes[:, 0]
+    r = base.peg_half_sizes[:, 2]
+    peg0 = base.peg.pose
+    yaw = _yaw_of(peg0.q)
+    grasp_q = _yawed_down_q(yaw, mp.down_q)
+    # grip toward the tail so that the head stays clear for the insertion
+    off = torch.clamp(L / 2 + 0.01, min=0.05)
+    dirx = torch.stack([torch.cos(yaw), torch.sin(yaw)], -1)
+    gxy = peg0.p[:, :2] - dirx * off[:, None]
+    mp.move_to_pose(_pose(torch.cat([gxy, torch.full_like(gxy[:, :1], 0.10)], -1), grasp_q), refine_steps=3)
+    mp.move_to_pose(_pose(torch.cat([gxy, r[:, None]], -1), grasp_q), refine_steps=5)
+    mp.close_gripper(steps=8)
+
+    # lift, then carry the peg in front of the hole, head toward the block:
+    # desired tcp = goal * Off(-d) * peg^-1 * tcp (Off along the goal's x:
+    # -x is out of the hole)
+    tcp0 = base.agent.tcp.pose
+    peg_now = base.peg.pose
+    goal = base.goal_pose
+    lift = torch.zeros_like(tcp0.raw_pose)
+    lift[:, 2:3].fill_(0.06)
+    lift[:, 3:4].fill_(1.0)
+    mp.move_to_pose((Pose(lift) * tcp0).raw_pose, refine_steps=3)
+    out = _x_offset(-0.01 - L, L[:, None])
+    pre = goal * out * peg_now.inv() * base.agent.tcp.pose
+    mp.move_to_pose(pre.raw_pose, steps=80, refine_steps=6, arc_steps=6)
+    # re-measure the peg's residual error and correct it
+    for _ in range(3):
+        pre = goal * out * base.peg.pose.inv() * base.agent.tcp.pose
+        mp.move_to_pose(pre.raw_pose, steps=30, refine_steps=4)
+    push = goal * _x_offset(0.02, L[:, None]) * base.peg.pose.inv() * base.agent.tcp.pose
+    return mp.move_to_pose(push.raw_pose, steps=40, refine_steps=8)
+
+
+def solve_plug_charger(env):
+    """Grasp the charger's base, align it with the receptacle's slots, and
+    insert it in stages, re-measuring between them."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env, joint_vel_limit=0.6)
+    mp.open_gripper(steps=3)
+
+    ch0 = base.charger.pose
+    grasp_q = _yawed_down_q(_yaw_of(ch0.q), mp.down_q)
+    bz = base._base_size[2]
+    # the base's centre, not the charger's origin (which sits on the
+    # base-peg boundary): fingers closing there hold the base on full pads
+    base_off = torch.zeros_like(ch0.p)
+    base_off[:, 0:1].fill_(-base._base_size[0])
+    grasp = _set(ch0.p + rc.quaternion_apply(ch0.q, base_off), 2, bz)
+    # pass above the floating receptacle before descending
+    mp.move_to_pose(_pose(_set(grasp, 2, 0.20), grasp_q), refine_steps=2)
+    mp.move_to_pose(_pose(_set(grasp, 2, 0.08), grasp_q), refine_steps=3)
+    mp.move_to_pose(_pose(grasp, grasp_q), refine_steps=5)
+    mp.close_gripper(steps=8)
+
+    goal = base.goal_pose
+    like = ch0.p
+
+    def align(dx, steps, refine):
+        tgt = goal * _x_offset(dx, like) * base.charger.pose.inv() * base.agent.tcp.pose
+        return mp.move_to_pose(tgt.raw_pose, steps=steps, refine_steps=refine)
+
+    pre = goal * _x_offset(-0.05, like) * base.charger.pose.inv() * base.agent.tcp.pose
+    mp.move_to_pose(pre.raw_pose, steps=60, refine_steps=4, arc_steps=6)
+    align(-0.05, steps=20, refine=4)
+    # staged insertion: each stage corrects the residual the last one left
+    mp.joint_vel_limit = 0.2
+    align(-0.02, steps=20, refine=4)
+    align(-0.008, steps=15, refine=4)
+    return align(0.003, steps=30, refine=10)
+
+
 SOLUTIONS = {
     "PushCube-v1": solve_push_cube,
     "PickCube-v1": solve_pick_cube,
@@ -316,5 +414,7 @@ SOLUTIONS = {
     "StackPyramid-v1": solve_stack_pyramid,
     "LiftPegUpright-v1": solve_lift_peg_upright,
     "PullCubeTool-v1": solve_pull_cube_tool,
+    "PegInsertionSide-v1": solve_peg_insertion_side,
+    "PlugCharger-v1": solve_plug_charger,
     "PickSingleYCB-v1": solve_pick_single_ycb,
 }

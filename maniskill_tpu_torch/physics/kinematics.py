@@ -128,7 +128,9 @@ def body_jacobians(model: Model, data: Data, dof_axis: torch.Tensor, dof_anchor:
 
 
 def geom_poses_from(model: Model, xpos: torch.Tensor, xquat: torch.Tensor):
-    """World poses of all geoms: (B, ngeom, 3), (B, ngeom, 4)."""
+    """World poses of all geoms: (B, ngeom, 3), (B, ngeom, 4). ``geom_pos``
+    may be shared (ngeom, 3) or per env (B, ngeom, 3); it is read from the
+    model on each call, so a table written after the plan exists applies."""
     gb = model_plan(model).geom_body
     bp, bq = xpos[:, gb], xquat[:, gb]
     pos = bp + rc.quaternion_apply(bq, model.geom_pos)

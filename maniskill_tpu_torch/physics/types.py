@@ -98,9 +98,9 @@ class Model(_Replace):
     drive_kp: torch.Tensor  # (nv,)
     drive_kd: torch.Tensor  # (nv,)
     drive_force_limit: torch.Tensor  # (nv,)
-    geom_pos: torch.Tensor  # (ngeom, 3)
+    geom_pos: torch.Tensor  # (ngeom, 3) or per env (B, ngeom, 3), in the body frame
     geom_quat: torch.Tensor  # (ngeom, 4)
-    geom_size: torch.Tensor  # (ngeom, 3)
+    geom_size: torch.Tensor  # (ngeom, 3) or per env (B, ngeom, 3)
     geom_friction: torch.Tensor  # (ngeom,)
     gravity: torch.Tensor  # (3,)
 

@@ -2,8 +2,8 @@
 maniskill_tpu/scene_builder/table/scene_builder.py).
 
 Builds a ground plane + table whose top surface is exactly z=0 (tasks place
-objects at z=half_size), and initializes the robot at its keyframe pose with
-small qpos noise.
+objects at z=half_size), and initializes each robot at its keyframe pose
+with small qpos noise.
 """
 from __future__ import annotations
 
@@ -38,22 +38,27 @@ class TableSceneBuilder(SceneBuilder):
         b.set_initial_pose(np.array([-0.12, 0, 0, 1, 0, 0, 0]))
         self.table = b.build_static("table-workspace")
         self.table_height = TABLE_HEIGHT
-        kf = self.env.agent.keyframes.get("rest")
-        if kf is not None and kf.qpos is not None:
-            # on the device once: a host-to-device copy in every reset would
-            # stall the rollout's masked resets
-            self._rest_qpos = torch.as_tensor(np.asarray(kf.qpos, np.float32), device=self.env.device)
+        # per agent: its rest qpos and noise mask on the device once (a
+        # host-to-device copy in every reset would stall the rollout's
+        # masked resets), or None without a rest keyframe
+        self._rest = []
+        for agent in getattr(self.env.agent, "agents", [self.env.agent]):
+            kf = agent.keyframes.get("rest")
+            if kf is None or kf.qpos is None:
+                self._rest.append((agent, None, None))
+                continue
+            qpos = torch.as_tensor(np.asarray(kf.qpos, np.float32), device=self.env.device)
             # the gripper joints stay exactly at the keyframe
-            self._noise_mask = torch.ones(len(kf.qpos), device=self.env.device)
+            mask = torch.ones(len(kf.qpos), device=self.env.device)
             if len(kf.qpos) >= 2:
-                self._noise_mask[-2:] = 0.0
+                mask[-2:] = 0.0
+            self._rest.append((agent, qpos, mask))
 
     def initialize(self, env_idx):
-        env = self.env
-        agent = env.agent
-        kf = agent.keyframes.get("rest")
-        if kf is None or kf.qpos is None:
-            agent.reset()
-            return
-        noise = env._batched_episode_rng.normal(0.0, self.robot_init_qpos_noise, size=(len(kf.qpos),))
-        agent.reset(self._rest_qpos + noise * self._noise_mask)
+        rng = self.env._batched_episode_rng
+        for agent, qpos, mask in self._rest:
+            if qpos is None:
+                agent.reset()
+                continue
+            noise = rng.normal(0.0, self.robot_init_qpos_noise, size=(qpos.shape[0],))
+            agent.reset(qpos + noise * mask)

@@ -24,7 +24,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 TASKS = ["PushCube-v1", "PickCube-v1", "PullCube-v1", "StackCube-v1", "PlaceSphere-v1",
-         "StackPyramid-v1", "LiftPegUpright-v1", "PullCubeTool-v1", "PickSingleYCB-v1"]
+         "StackPyramid-v1", "LiftPegUpright-v1", "PullCubeTool-v1", "PickSingleYCB-v1",
+         "PegInsertionSide-v1", "PlugCharger-v1"]
 NUM_ENVS = 128
 SEED = 0
 

@@ -3,6 +3,10 @@ files import them), and a check of the f32 solver switch they rely on.
 
 - ``tree(x, fn)`` maps ``fn`` over the leaves of a nested dict (a state dict
   handed from one package to the other).
+- ``assert_obs_close`` holds the port's obs tree to the JAX package's;
+  ``assert_models_equal`` holds the port's ``Model`` to the JAX package's
+  (candidate pairs, topology, per-env tables); ``numpy_fields`` reads a JAX
+  ``Model`` or ``Data`` out as numpy for ``model_from_numpy``.
 - ``f32_solver()`` makes the JAX solver's bf16 cast an identity. The
   reference solver casts J and W to bf16 for the TPU's matrix unit
   (maniskill_tpu/physics/solver.py:293-306); the port keeps them f32. For
@@ -15,16 +19,121 @@ files import them), and a check of the f32 solver switch they rely on.
   torch thread: the port's eager CPU step is thousands of small ops, and
   with parallel test workers and torch's default thread count they
   oversubscribe the cores (4-20x slower).
+- ``jax_cooking_lib()`` loads the JAX package's native cooking library once
+  it is whole, and the fixture ``jax_cooking`` calls it: every port test
+  that reaches the JAX package's cooking uses the fixture. The JAX package
+  builds ``maniskill_tpu/native/build/libcooking.so`` with g++ writing the
+  file in place whenever it is missing or older than ``cooking.cpp``, so
+  with parallel test workers one worker could ``dlopen`` the file while
+  another was still writing it ("file too short"). Importing this module
+  (every worker collects it before any test runs) builds that file first,
+  with the JAX package's own g++ command into a temporary file that is then
+  renamed over it, so no worker's build writes it in place during the tests.
 
 JAX is imported where it is used, so that a file that needs only the
 thread fixture needs no JAX.
 """
 import contextlib
+import dataclasses
+import os
+import subprocess
+import tempfile
+import time
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+
+_JAX_NATIVE = Path(__file__).resolve().parents[1] / "maniskill_tpu" / "native"
+
+
+def _build_jax_cooking_lib():
+    """Build the JAX package's cooking library as its own ``_build`` does
+    (same source, command and path, same staleness rule), but atomically."""
+    src, build = _JAX_NATIVE / "cooking.cpp", _JAX_NATIVE / "build"
+    so = build / "libcooking.so"
+    if not src.exists() or (so.exists() and so.stat().st_mtime >= src.stat().st_mtime):
+        return
+    build.mkdir(exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=".libcooking-", suffix=".so", dir=build)
+    os.close(fd)
+    try:
+        subprocess.check_call(["g++", "-O2", "-shared", "-fPIC", "-o", tmp, str(src)])
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+_build_jax_cooking_lib()
+
+
+def jax_cooking_lib(timeout: float = 120.0):
+    """``maniskill_tpu.native._lib()``, retried while loading raises
+    ``OSError`` (a library another process is still writing) for up to
+    ``timeout`` seconds; then the last error is raised."""
+    from maniskill_tpu import native
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return native._lib()
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.5)
+
+
+@pytest.fixture(scope="module")
+def jax_cooking():
+    return jax_cooking_lib()
+
+
+def assert_obs_close(tobs, jobs, atol, what):
+    """Every leaf of the JAX obs tree ``jobs`` within ``atol`` of the port's
+    ``tobs`` leaf at the same path."""
+    import jax
+
+    for path, jv in jax.tree_util.tree_leaves_with_path(jobs):
+        tv = tobs
+        for p in path:
+            tv = tv[p.key]
+        np.testing.assert_allclose(tv.numpy().astype(np.float32), np.asarray(jv, np.float32),
+                                   rtol=0, atol=atol, err_msg=f"{what} obs{path}")
+
+
+def assert_models_equal(tm, jm):
+    """Candidate pairs, topology and the per-env parameter tables equal."""
+    for f in ("pair_geom1", "pair_geom2", "body_type", "geom_body", "geom_type"):
+        np.testing.assert_array_equal(np.asarray(getattr(tm, f)), np.asarray(getattr(jm, f)), err_msg=f)
+    for f in ("geom_size", "geom_pos", "geom_quat", "body_mass", "hull_verts", "hull_dirs"):
+        tv, jv = getattr(tm, f), getattr(jm, f)
+        if jv is None:
+            assert tv is None, f
+            continue
+        jv = np.asarray(jv)
+        tv = tv.numpy()
+        np.testing.assert_array_equal(np.broadcast_to(tv, jv.shape), np.broadcast_to(jv, tv.shape), err_msg=f)
+    assert tm.max_active_contacts == jm.max_active_contacts
+    assert tm.solver_iterations == jm.solver_iterations
+
+
+def numpy_fields(obj):
+    """A JAX ``Model``/``Data`` read out as numpy, keyed by field name (for
+    ``model_from_numpy``/``data_from_numpy``)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None or isinstance(v, (int, float, tuple, str)):
+            out[f.name] = v
+        elif isinstance(v, dict):
+            out[f.name] = {k: np.asarray(x) for k, x in v.items()}
+        else:
+            out[f.name] = np.asarray(v)
+    return out
 
 
 def tree(x, fn):

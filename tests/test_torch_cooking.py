@@ -15,6 +15,11 @@ from maniskill_tpu.building.actors import ycb as jycb
 from maniskill_tpu_torch.building import cooking as tcook
 from maniskill_tpu_torch.building.actors import ycb as tycb
 
+from test_torch_common import jax_cooking  # noqa: F401
+
+# the JAX package's cooking library, loaded once it is whole
+pytestmark = pytest.mark.usefixtures("jax_cooking")
+
 MODELS = tycb.all_model_ids()
 
 

@@ -36,7 +36,10 @@ from maniskill_tpu_torch.envs.scene import ManiSkillScene as TScene
 from maniskill_tpu_torch.physics import collision as tcol
 from maniskill_tpu_torch.physics.types import BOX, CAPSULE, CYLINDER, HULL, PLANE, SPHERE
 
-from test_torch_common import f32_reference_solver, one_torch_thread  # noqa: F401
+from test_torch_common import f32_reference_solver, jax_cooking, one_torch_thread  # noqa: F401
+
+# the JAX package's cooking library, loaded once it is whole
+pytestmark = pytest.mark.usefixtures("jax_cooking")
 
 B = 64
 ATOL = 1e-5
@@ -304,7 +307,9 @@ def test_per_env_render_mesh_matches_reference():
             h.add_convex_collision_from_mesh(part, color=[0.8, 0.6, 0.3, 1.0])
         obj = h.build(name="obj")
         scene.finalize()
-        scene.set_per_env_geom_sizes(box, np.stack([sizes, sizes], 1))
+        # the JAX scene takes the actor, the port's the geom ids
+        target = box if Scene is JScene else box.geom_ids
+        scene.set_per_env_geom_sizes(target, np.stack([sizes, sizes], 1))
         scene.set_per_env_hulls(obj, np.stack([np.stack(c) for c in cooked]))
         meshes.append((JMesh if Scene is JScene else TMesh).build(scene.model, scene))
     jmesh, tmesh = meshes

@@ -31,8 +31,6 @@ bridged across.
 - One env reconfigures on every full reset (port only): the object drawn is
   the JAX package's draw from the same seed.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -46,25 +44,15 @@ import maniskill_tpu_torch.envs  # noqa: F401
 from maniskill_tpu_torch import make as tmake
 from maniskill_tpu_torch import physics as tphys
 
-from test_torch_common import f32_reference_solver, one_torch_thread, tree  # noqa: F401
+from test_torch_common import f32_reference_solver, jax_cooking, numpy_fields, one_torch_thread, tree  # noqa: F401
+
+# the JAX package's cooking library, loaded once it is whole
+pytestmark = pytest.mark.usefixtures("jax_cooking")
 
 B = 4
 KW = dict(num_envs=B, obs_mode="state_dict", control_mode="pd_joint_pos")
 ROCKING = ("002_master_chef_can", "005_tomato_soup_can")
 DEAD = -1e5  # depth below this is a BAD_DEPTH row
-
-
-def _numpy_fields(obj):
-    out = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if v is None or isinstance(v, (int, float, tuple, str)):
-            out[f.name] = v
-        elif isinstance(v, dict):
-            out[f.name] = {k: np.asarray(x) for k, x in v.items()}
-        else:
-            out[f.name] = np.asarray(v)
-    return out
 
 
 def _bridged_substep(jb, qpos=None):
@@ -76,13 +64,13 @@ def _bridged_substep(jb, qpos=None):
     jm, jd = jb.scene.model, jb.scene.data
     if qpos is not None:
         jd = jd.replace(qpos=jax.numpy.asarray(qpos))
-    tm = tphys.model_from_numpy(_numpy_fields(jm), "cpu")
+    tm = tphys.model_from_numpy(numpy_fields(jm), "cpu")
     c = jd.contact
     tcon = tphys.Contact(geom1=np.asarray(c.geom1), geom2=np.asarray(c.geom2), **{
         k: torch.as_tensor(np.array(getattr(c, k)))
         for k in ("pos", "normal", "depth", "friction", "restitution", "impulse", "overflow")})
     jd2 = jax.jit(jphys.step)(jm, jd)
-    td2 = tphys.step(tm, tphys.data_from_numpy(_numpy_fields(jd), "cpu", contact=tcon))
+    td2 = tphys.step(tm, tphys.data_from_numpy(numpy_fields(jd), "cpu", contact=tcon))
     jc, tc = jd2.contact, td2.contact
     np.testing.assert_array_equal(tc.geom1, np.asarray(jc.geom1))
     live = np.asarray(jc.depth) > DEAD
