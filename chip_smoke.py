@@ -15,12 +15,12 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      finite state, kernel launches == resets + steps, dropped == 0, and the
      last state re-rendered through the plain version for 32 envs.
   5. Cartpole timings: env steps/s, kernel vs plain ms per frame.
-  6. PickCube-v1 state, 4096 envs: 50 timed zero-action steps; finite state,
+  6. PickCube-v1 state, 4096 envs: 10 timed zero-action steps; finite state,
      contact.overflow == 0, cube z within 1 mm of 0.02 and the table's force
      on it within 2% of its weight (0.064 kg x 9.81).
   7. PickCube-v1 grasp, 4096 envs: the cube between the open fingers, the
      gripper closes; is_grasped in every env within 5 steps.
-  8. PickCube-v1 rgb, 2048 envs: 50 timed steps; kernel launches == resets +
+  8. PickCube-v1 rgb, 2048 envs: 10 timed steps; kernel launches == resets +
      steps, dropped == 0, the last frame of 16 envs re-rendered through the
      plain version (seg agreement >= 0.999, rgb equal), faces per band.
   9. FrankaMoveBenchmark-v1 (4096 envs) and FrankaPickCubeBenchmark-v1 (8192
@@ -46,7 +46,7 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      copies; a constant +x command in pd_ee_delta_pos moves the TCP along +x
      (cosine >= 0.99); zero actions in pd_ee_target_delta_pose drift the TCP
      as the CPU does from the same state (16 envs, within 0.1 mm).
- 15. PickCube-v1 rgb+depth+segmentation and state, 2048 envs: 30 timed steps
+ 15. PickCube-v1 rgb+depth+segmentation and state, 2048 envs: 16 timed steps
      each, the two envs alternating step by step, and their rate ratio (the
      median of the step pairs'); kernel launches == resets + steps, dropped
      == 0, the last frame of 16 envs re-rendered through the plain version
@@ -87,7 +87,7 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
  21. The seven single-robot tasks of the family's last slice (PokeCube,
      RollBall, PushT, TurnFaucet, PlugCharger, PegInsertionSide with each
      env's own peg and hole, AssemblingKits), state, 4096 envs each: make
-     time, 10 timed zero-action steps, one profiled step (launches, 0
+     time, 5 timed zero-action steps, one profiled step (launches, 0
      stream/event syncs, 0 host-to-device copies), contact.overflow 0 in
      every env; the table holds PokeCube's cube, RollBall's ball and PushT's
      tee with their weight within 2%; the faucet's handle inside its limits.
@@ -99,16 +99,35 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      through the plain version (seg agreement >= 0.999, rgb equal), peg and
      block in view, the kernel's ms per frame against its bound.
  23. TwoRobotPickCube-v1 and TwoRobotStackCube-v1, state, 4096 envs, dict
-     zero actions: as phase 21 (10 timed steps, launches, 0 syncs, 0
+     zero actions: as phase 21 (5 timed steps, launches, 0 syncs, 0
      copies, overflow 0).
+ 24. The locomotion family (MS-Hopper*, MS-Ant*, MS-Humanoid* and their Hard
+     variants; AnymalC-Reach/Spin, UnitreeGo2-Reach, UnitreeH1Stand and
+     UnitreeG1Stand, loaded from URDF), state, 4096 envs each, zero actions
+     in pd_joint_delta_pos: make time, 10 timed steps (5 for the Run and
+     Hard variants, which share a robot with a sibling timed over 10), one
+     profiled step (launches, 0 stream/event syncs, 0 host-to-device
+     copies), the contact candidates and K; in every step every obs and
+     reward finite and contact.overflow 0; the first 16 envs' root-link
+     heights within 1e-3 m of the JAX package's CPU figures from the same
+     states (scripts/locomotion_figures.json); the vertical contact force
+     on the near-static robots (Ant, the humanoid, Go2, H1, G1) in a band
+     of their weight in every env.
+ 25. AnymalC-Reach-v1 rgb, 2048 envs, its base camera mounted on the
+     floating base: kernel launches == resets + steps, the last frame of
+     16 envs re-rendered through the plain version (seg agreement >=
+     0.999, rgb equal), the goal in view, the camera's pose equal to the
+     base's pose (its FREE root's qpos) times the mount offset in every env
+     after the base has moved and with every base set to a random pose, the
+     kernel's ms per frame against its bound.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
  and the YCB solution syncs twice once (the grasp PCA's read and write),
  besides one sync per move.
-Phases 6 and 8 time 20 steps, phase 10 runs 2 PPO iterations, phase 14
-times 10 steps per mode and phase 15 30 step pairs, so that the whole run
-stays well inside its time limit.
+Phases 6 and 8 time 10 steps, phase 10 runs 2 PPO iterations, phase 14
+times 10 steps per mode, phase 15 16 step pairs and phases 21 and 23 5
+steps per task, so that the whole run stays well inside its time limit.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on each path, errors, times and bounds.
 """
@@ -125,12 +144,12 @@ import numpy as np
 
 # envs and timed steps of each path (the bench.py configurations)
 CARTPOLE = ("CartpoleBalanceBenchmark-v1", 1024, 50)
-PICKCUBE_STATE = ("PickCube-v1", 4096, 20)
-PICKCUBE_RGB = ("PickCube-v1", 2048, 20)
+PICKCUBE_STATE = ("PickCube-v1", 4096, 10)
+PICKCUBE_RGB = ("PickCube-v1", 2048, 10)
 PD_EE = ("PickCube-v1", 4096, 10)
 EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose", "pd_ee_target_delta_pos", "pd_ee_target_delta_pose",
             "pd_joint_vel")
-PICKCUBE_RGBD = ("PickCube-v1", 2048, 30)
+PICKCUBE_RGBD = ("PickCube-v1", 2048, 16)
 RGBD_RATIO_4090 = 0.909  # rgb+depth+segmentation / state fps of ManiSkill on an RTX 4090 (BASELINE.md)
 # motion planner cells: (env, envs); the limit is the JAX package's recorded
 # demo success (demos/<env>/mp_<env>.json) less 0.15
@@ -183,7 +202,7 @@ CLUTTER_DEPTH_TOL = 1e-5
 # phases 21-23: the rest of the tabletop family, state, zero actions
 FAMILY_STATE = ("PokeCube-v1", "RollBall-v1", "PushT-v1", "TurnFaucet-v1", "PlugCharger-v1",
                 "PegInsertionSide-v1", "AssemblingKits-v1")
-FAMILY_ENVS, FAMILY_STEPS = 4096, 10
+FAMILY_ENVS, FAMILY_STEPS = 4096, 5
 # the dynamic object that rests on the table from the reset on
 FAMILY_RESTING = {"PokeCube-v1": "cube", "RollBall-v1": "ball", "PushT-v1": "tee"}
 TWO_ROBOT = ("TwoRobotPickCube-v1", "TwoRobotStackCube-v1")
@@ -200,6 +219,38 @@ PEG_JAX_ROWS = [16, 16, 16, 16, 16, 16, 16, 16]
 PEG_JAX_DEEPEST = [-0.001000002, -0.0010000095, -0.0010000095, -0.001000002, -0.001000002, -0.001000002,
                    -0.001000002, -0.001000002]
 PEG_DEPTH_TOL = 1e-6
+# phase 24: the locomotion family, state, zero actions: (env, timed steps,
+# action width); the Run and Hard variants share a robot with a sibling
+# timed over 10
+LOCOMOTION = (("MS-HopperStand-v1", 10, 4), ("MS-HopperHop-v1", 10, 4), ("MS-AntWalk-v1", 10, 8),
+              ("MS-AntRun-v1", 5, 8), ("MS-HumanoidStand-v1", 10, 21), ("MS-HumanoidWalk-v1", 10, 21),
+              ("MS-HumanoidRun-v1", 5, 21), ("MS-HumanoidStandHard-v1", 5, 21), ("MS-HumanoidWalkHard-v1", 5, 21),
+              ("MS-HumanoidRunHard-v1", 5, 21), ("AnymalC-Reach-v1", 10, 12), ("AnymalC-Spin-v1", 10, 12),
+              ("UnitreeGo2-Reach-v1", 10, 12), ("UnitreeH1Stand-v1", 10, 19), ("UnitreeG1Stand-v1", 10, 13))
+LOCOMOTION_ENVS = 4096
+# the JAX package's figures on the CPU from the port's seed-0 states of the
+# first 16 envs (scripts/locomotion_figures.py jax): the root link's height
+# (the hopper's torso) after each zero-action step, held within
+# LOCOMOTION_Z_TOL; the port's reset draws per env from a counter-based
+# hash, so the first 16 of 4096 envs start from those states
+LOCOMOTION_FIGURES = "scripts/locomotion_figures.json"
+LOCOMOTION_FIGURE_ENVS = 16
+LOCOMOTION_Z_TOL = 1e-3
+# the near-static robots: the vertical contact force on the robot's links
+# over its weight in every env, at each step of [first, last] (1-based), or
+# its mean over them, inside [low, high] (set from their spread at 1024 envs
+# on the CPU with the same seed, PERF.md section 6). HumanoidStand's random
+# yaw leaves some envs still landing at step 10, so the humanoid's band is
+# held in HumanoidWalk, which shares its robot and physics
+LOCOMOTION_BANDS = {
+    "MS-AntWalk-v1": (10, 10, False, 0.95, 1.05),
+    "MS-HumanoidWalk-v1": (10, 10, False, 0.95, 1.05),
+    "UnitreeGo2-Reach-v1": (3, 10, False, 0.98, 1.02),
+    "UnitreeH1Stand-v1": (3, 10, True, 0.90, 1.25),
+    "UnitreeG1Stand-v1": (3, 10, True, 0.90, 1.20),
+}
+# phase 25: AnymalC-Reach rgb, its base camera mounted on the floating base
+ANYMAL_RGB = ("AnymalC-Reach-v1", 2048, 10)
 # PPO cells: README.md's recipes (env, envs, rollout steps, epochs, minibatches,
 # iterations run here, total steps of the recipe for the learning-rate decay)
 PPO_STATE = ("PickCube-v1", 4096, 4, 8, 32, 2, 100_000_000)
@@ -703,6 +754,8 @@ def ycb_state_phase(torch, dev, make, card):
         else:
             check(rel[sel].max() <= 0.02, f"{uid} statics: {mid}: table force off its weight by {rel[sel].max():.4f}")
             check(moved[sel].max() <= 2e-3, f"{uid} statics: {mid} moved {moved[sel].max() * 1e3:.3f} mm")
+    n_cand, k = len(data.contact.geom1), base.scene.model.max_active_contacts
+    k_rows = k if 0 < k < n_cand else f"{n_cand} (every candidate)"
     _, prof = profile_calls(lambda: env.step(zero), 1)
     check(prof["syncs"] == 0, f"{uid}: {prof['syncs']} stream/event syncs in a step")
     check(prof["h2d_copies"] == 0, f"{uid}: {prof['h2d_copies']} host-to-device copies in a step")
@@ -813,6 +866,8 @@ def clutter_phase(torch, dev, make, card):
     check(bool(torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()), f"{uid}: state not finite")
     overflow = data.contact.overflow
     share, worst = float((overflow > 0).float().mean()), int(overflow.max())
+    n_cand, k = len(data.contact.geom1), base.scene.model.max_active_contacts
+    k_rows = k if 0 < k < n_cand else f"{n_cand} (every candidate)"
     _, prof = profile_calls(lambda: env.step(zero), 1)
     check(prof["syncs"] == 0, f"{uid}: {prof['syncs']} stream/event syncs in a step")
     check(prof["h2d_copies"] == 0, f"{uid}: {prof['h2d_copies']} host-to-device copies in a step")
@@ -854,10 +909,12 @@ def clutter_phase(torch, dev, make, card):
     print(f"{uid} x{n}, seed 0, 3 steps: overflow per env {got}, equal to the JAX package's on the CPU {card}")
 
 
-def state_cell(torch, dev, make, card, uid, n_envs, n_steps, zero, **kw):
+def state_cell(torch, dev, make, card, uid, n_envs, n_steps, zero, after=None, **kw):
     """Make ``uid`` at ``n_envs`` in state mode, time ``n_steps`` steps of
     ``zero`` after a warm-up, check the state and overflow, and profile one
-    more step (0 syncs, 0 host-to-device copies). Returns the env."""
+    more step (0 syncs, 0 host-to-device copies). ``after(base, i, step
+    outputs)``, if given, runs after each timed step i (queuing device work
+    only) and once after the warm-up step with i = -1. Returns the env."""
     from maniskill_tpu_torch.utils.timing import profile_calls, timed_steps
 
     t0 = time.perf_counter()
@@ -866,13 +923,25 @@ def state_cell(torch, dev, make, card, uid, n_envs, n_steps, zero, **kw):
     make_s = time.perf_counter() - t0
     base = env.unwrapped
     env.reset(seed=0)
-    env.step(zero)  # builds the lazy tables (contact signs)
+    out = env.step(zero)  # builds the lazy tables (contact signs)
+    if after is not None:
+        after(base, -1, out)  # and the hook's
     env.reset(seed=0)
-    step_s = timed_steps(env, zero, n_steps)
+    if after is None:
+        step_s = timed_steps(env, zero, n_steps)
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            after(base, i, env.step(zero))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
     data = base.scene.data
     check(bool(torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()), f"{uid}: state not finite")
     overflow = int(data.contact.overflow.max())
     check(overflow == 0, f"{uid} x{n_envs}: contact overflow in {int((data.contact.overflow > 0).sum())} envs")
+    n_cand, k = len(data.contact.geom1), base.scene.model.max_active_contacts
+    k_rows = k if 0 < k < n_cand else f"{n_cand} (every candidate)"
     _, prof = profile_calls(lambda: env.step(zero), 1)
     check(prof["syncs"] == 0, f"{uid}: {prof['syncs']} stream/event syncs in a step")
     check(prof["h2d_copies"] == 0, f"{uid}: {prof['h2d_copies']} host-to-device copies in a step")
@@ -880,7 +949,8 @@ def state_cell(torch, dev, make, card, uid, n_envs, n_steps, zero, **kw):
           f"({n_envs * n_steps / step_s:.1f} env-steps/s, eager); step profile {prof['launches']:.0f} launches, "
           f"{prof['syncs']:.0f} stream/event syncs, {prof['h2d_copies']:.0f} host-to-device copies, device "
           f"kernels {prof['device_kernel_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (idle "
-          f"{prof['device_idle_share']:.3f}); contact.overflow 0 in every env {card}")
+          f"{prof['device_idle_share']:.3f}); {n_cand} contact candidates, K={k_rows}; contact.overflow 0 in "
+          f"every env {card}")
     return env
 
 
@@ -1012,6 +1082,149 @@ def two_robot_phase(torch, dev, make, card):
         space = env.unwrapped.single_action_space
         check(sorted(space.spaces) == ["panda-0", "panda-1"], f"{uid}: action space {space}")
         del env
+
+
+def locomotion_phase(torch, dev, make, card):
+    """Phase 24: the 15 locomotion envs at 4096 envs, zero actions. Every
+    step's obs and reward finite and overflow 0; the first 16 envs' root
+    heights held to the JAX package's figures from the same states; the
+    near-static robots' contact force held to a band of their weight."""
+    with open(LOCOMOTION_FIGURES) as f:
+        figures = json.load(f)
+    n, m = LOCOMOTION_ENVS, LOCOMOTION_FIGURE_ENVS
+    for uid, n_steps, n_act in LOCOMOTION:
+        rec = dict(z=[], force=[], finite=[], overflow=[])
+
+        def after(base, i, out):
+            robot = base.agent.robot
+            root = robot.links_map["torso"] if robot.fixed_root else robot.links[0]
+            z = root.pose.p[:m, 2]
+            force = robot.get_net_contact_forces()[..., 2].sum(1)
+            finite = torch.isfinite(out[0]).all() & torch.isfinite(out[1]).all()
+            overflow = base.scene.data.contact.overflow.max()
+            if i >= 0:
+                for k, v in zip(("z", "force", "finite", "overflow"), (z, force, finite, overflow)):
+                    rec[k].append(v)
+
+        env = state_cell(torch, dev, make, card, uid, n, n_steps, torch.zeros(n, n_act, device=dev), after=after)
+        base = env.unwrapped
+        robot = base.agent.robot
+        weight = float(np.asarray(base.scene.model.host_body_mass, np.float64)[
+            [link.body_id for link in robot.links]].sum()) * 9.81
+        finite = torch.stack(rec["finite"]).all().item()
+        check(finite, f"{uid}: obs or reward not finite in a step")
+        overflow = int(torch.stack(rec["overflow"]).max())
+        check(overflow == 0, f"{uid}: contact overflow {overflow} in a step")
+        z = torch.stack(rec["z"]).cpu().numpy()
+        want = np.array([row["root_z"] for row in figures[uid][:n_steps]], np.float64)
+        z_err = float(np.abs(z - want).max())
+        check(z_err <= LOCOMOTION_Z_TOL, f"{uid}: root heights of the first {m} envs off the JAX package's "
+                                         f"figures by {z_err:.3g} m (tolerance {LOCOMOTION_Z_TOL})")
+        share = (torch.stack(rec["force"]) / weight).cpu().numpy()  # (steps, envs)
+        line = (f"  {uid}: {n_steps} steps, obs and rewards finite and overflow 0 in every step; root heights of "
+                f"the first {m} envs within {z_err:.3g} m of the JAX package's (tolerance {LOCOMOTION_Z_TOL}); "
+                f"vertical contact force / weight {weight:.3f} N after step {n_steps}: "
+                f"{share[-1].min():.4f}-{share[-1].max():.4f}")
+        if uid in LOCOMOTION_BANDS:
+            first, last, mean, lo, hi = LOCOMOTION_BANDS[uid]
+            held = share[first - 1:last]
+            held = held.mean(0, keepdims=True) if mean else held
+            low, high = float(held.min()), float(held.max())
+            what = f"{'the mean over' if mean else 'each of'} steps {first}-{last}"
+            check(lo <= low and high <= hi, f"{uid}: vertical contact force / weight in {what} spans "
+                                             f"[{low:.4f}, {high:.4f}], outside [{lo}, {hi}]")
+            line += f"; in {what} {low:.4f}-{high:.4f} in every env (band [{lo}, {hi}])"
+        print(line)
+        del env, base, robot
+
+
+def anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 25: AnymalC-Reach rgb at 2048 envs through the kernel, its base
+    camera mounted on the floating base. Returns the kernel's max depth
+    error against the plain version."""
+    from maniskill_tpu_torch import physics
+    from maniskill_tpu_torch.structs.pose import Pose
+    from maniskill_tpu_torch.utils.geometry import rotation_conversions as rc
+    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+
+    uid, n_envs, n_steps = ANYMAL_RGB
+    kernel = tr.KERNEL
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
+    base = env.unwrapped
+    robot = base.agent.robot
+    zero = torch.zeros(n_envs, 12, device=dev)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    print(f"{uid} rgb x{n_envs}: built and warmed up in {time.perf_counter() - t0:.2f} s")
+    kernel.launches = 0
+    env.reset(seed=0)
+    qa = robot.root_q_adr
+    start = base.scene.data.qpos[:, qa:qa + 7].clone()
+    step_s = timed_steps(env, zero, n_steps - 1)
+    obs, *_ = env.step(zero)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(launches == 1 + n_steps, f"{uid} rgb: kernel launches {launches} != resets + steps {1 + n_steps}")
+    check(int(base.scene.data.contact.overflow.max()) == 0, f"{uid} rgb: contact overflow")
+    check(bool(torch.isfinite(obs["agent"]["qpos"]).all() & torch.isfinite(obs["agent"]["qvel"]).all()),
+          f"{uid} rgb: agent obs not finite")
+    rgb = obs["sensor_data"]["base_camera"]["rgb"]
+    check(tuple(rgb.shape) == (n_envs, 128, 128, 3) and rgb.dtype == torch.uint8,
+          f"{uid} rgb is {tuple(rgb.shape)} {rgb.dtype}")
+    inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, rgb, f"{uid} rgb")
+    # the camera follows the base: its pose is the base's (the FREE root's
+    # qpos) times the mount offset, composed here from rotation matrices;
+    # after the steps (the base sags level) and with every base set to a
+    # random pose of its own
+    cam = base._sensors["base_camera"]
+    seg = cam.get_obs(rgb=False, segmentation=True, hidden_actors=base._hidden_objects)["segmentation"][..., 0]
+    seen = (seg == base.goal.per_scene_id).flatten(1).any(1).float().mean().item()
+    check(seen >= 0.9, f"{uid} rgb: the goal is in view in only {seen:.3f} of the envs")
+    off = torch.as_tensor(np.asarray(cam.config.pose, np.float32), device=dev)
+
+    def camera_error():
+        root = base.scene.data.qpos[:, qa:qa + 7]
+        r_base = rc.quaternion_to_matrix(root[:, 3:])
+        want_p = root[:, :3] + torch.einsum("bij,j->bi", r_base, off[:3])
+        want_r = r_base @ rc.quaternion_to_matrix(off[3:])
+        pose = cam.world_pose()
+        return max((pose.p - want_p).abs().max().item(),
+                   (rc.quaternion_to_matrix(pose.q) - want_r).abs().max().item(),
+                   (cam.get_params()["cam2world_gl"][:, :3, 3] - want_p).abs().max().item())
+
+    moved = (base.scene.data.qpos[:, qa:qa + 7] - start).abs().max().item()
+    cam_err = camera_error()
+    rng = np.random.default_rng(0)
+    quat = rng.normal(size=(n_envs, 4))
+    raw = np.concatenate([rng.uniform(-1, 1, (n_envs, 3)), quat / np.linalg.norm(quat, axis=1, keepdims=True)], 1)
+    robot.set_root_pose(Pose(torch.as_tensor(raw, dtype=torch.float32, device=dev)))
+    base.scene.data = physics.forward_kinematics(base.scene.model, base.scene.data)
+    cam_err = max(cam_err, camera_error())
+    check(cam_err <= 1e-5, f"{uid} rgb: the camera is off the base pose times its mount by {cam_err:.3g}")
+    check(moved > 1e-3, f"{uid} rgb: the base moved only {moved:.3g} between the reset and the last step")
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
+    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
+    frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+    paths[f"anymalc_reach_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                                bound_by=bound_by)
+    print(f"{uid} rgb x{n_envs}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} "
+          f"ms/step, eager), kernel launches {launches}, last frame of 16 envs re-rendered through the plain "
+          f"version: seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; the camera on the base pose "
+          f"times its mount within {cam_err:.3g} in every env, after the steps (the base moved up to "
+          f"{moved:.4f}) and at random base poses; the goal in view in {seen:.3f} of the envs {card}")
+    print(f"raster kernel (anymal c reach, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
+    print(f"anymal c reach tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
+          f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
+          f"{inputs[0].shape[1]} {card}")
+    return err
 
 
 def main(device: str = "cuda"):
@@ -1305,6 +1518,10 @@ def main(device: str = "cuda"):
     family_state_phase(torch, dev, make, card)
     max_err = max(max_err, peg_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     two_robot_phase(torch, dev, make, card)
+
+    # ---- phases 24-25: the URDF loader and the locomotion family --------------
+    locomotion_phase(torch, dev, make, card)
+    max_err = max(max_err, anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

@@ -8,6 +8,12 @@ JAX. ``import maniskill_tpu_torch.envs`` registers the ported tasks.
 """
 __version__ = "0.1.0"
 
+import os
+
+# the port's own copies of the robot descriptions it loads (URDFs under
+# assets/robots/); it reads no file of the JAX package
+PACKAGE_ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
+
 from .utils.registration import REGISTERED_ENVS, make, register_env
 
-__all__ = ["register_env", "make", "REGISTERED_ENVS", "__version__"]
+__all__ = ["register_env", "make", "REGISTERED_ENVS", "__version__", "PACKAGE_ASSET_DIR"]

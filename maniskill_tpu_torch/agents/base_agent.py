@@ -1,9 +1,11 @@
 """BaseAgent: robot wrapper (counterpart of maniskill_tpu/agents/base_agent.py).
 
 An agent owns one Articulation plus a registry of controller configs keyed by
-control mode. Robots are defined by a procedural ``build_description()``
-(LinkSpec list); the URDF/MJCF loaders are not ported yet. ``MultiAgent``
-drives several robots of one scene with dict actions keyed by agent name.
+control mode. A robot is defined by a ``urdf_path`` (loaded by
+``building/urdf_loader.py`` from the port's own ``assets/robots/``) or by a
+procedural ``build_description()`` (a LinkSpec list); the MJCF loader is not
+ported yet. ``MultiAgent`` drives several robots of one scene with dict
+actions keyed by agent name.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class Keyframe:
 class BaseAgent:
     uid: str = "base_agent"
     urdf_path: Optional[str] = None
+    urdf_config: dict = {}
     fix_root_link: bool = True
     disable_self_collisions: bool = False
     keyframes: Dict[str, Keyframe] = {}
@@ -52,6 +55,7 @@ class BaseAgent:
         self.controller: Optional[BaseController] = None
         self.controllers: Dict[str, BaseController] = {}
         self._load_articulation(initial_pose)
+        self._after_loading_articulation()
 
     @property
     def name(self) -> str:
@@ -60,18 +64,31 @@ class BaseAgent:
         return self.uid
 
     def _load_articulation(self, initial_pose=None):
+        """Build the robot: from ``urdf_path`` when it is set, else from
+        ``build_description()``."""
+        pose = None
+        if initial_pose is not None:
+            raw = np.asarray(Pose.create(initial_pose).raw_pose, np.float64)
+            pose = raw[0] if raw.ndim > 1 else raw
         if self.urdf_path is not None:
-            raise NotImplementedError("the URDF loader is not ported yet")
+            loader = self.scene.create_urdf_loader()
+            loader.name = self.name
+            loader.fix_root_link = self.fix_root_link
+            loader.disable_self_collisions = self.disable_self_collisions
+            self.robot = loader.load(self.urdf_path, initial_pose=pose)
+            return
         builder = self.build_description()
         builder.fix_root_link = self.fix_root_link
         builder.disable_self_collisions = self.disable_self_collisions
-        if initial_pose is not None:
-            raw = np.asarray(Pose.create(initial_pose).raw_pose, np.float64)
-            builder.set_initial_pose(raw[0] if raw.ndim > 1 else raw)
+        if pose is not None:
+            builder.set_initial_pose(pose)
         self.robot = builder.build(self.name)
 
     def build_description(self):
-        raise NotImplementedError(f"{type(self).__name__} must define build_description()")
+        raise NotImplementedError(f"{type(self).__name__} must define urdf_path or build_description()")
+
+    def _after_loading_articulation(self):
+        """Robot hook run once the articulation is built."""
 
     # -- controllers -----------------------------------------------------
     @property

@@ -55,6 +55,11 @@ class ManiSkillScene:
 
         return ArticulationBuilder(self)
 
+    def create_urdf_loader(self):
+        from ..building.urdf_loader import URDFLoader
+
+        return URDFLoader(self)
+
     def register_actor(self, actor: Actor):
         if actor.name in self.actors:
             raise ValueError(f"duplicate actor name {actor.name!r}")
@@ -292,6 +297,25 @@ class ManiSkillScene:
                     - np.isin(b1, list(ids)).astype(np.float32))
 
         return self._signed_force(self._contact_sign(("net", ids), sign_fn))
+
+    def net_contact_forces_per_body(self, body_ids: Sequence[int]) -> torch.Tensor:
+        """(B, L, 3) net contact force on each of the L bodies: one (L, C)
+        sign matrix, kept in the device plan, and one product per call."""
+        c = self.data.contact
+        zeros = torch.zeros(self.num_envs, len(body_ids), 3, device=self.device)
+        if c is None or len(c.geom1) == 0:
+            return zeros
+        ids = tuple(int(i) for i in body_ids)
+
+        def sign_fn(b1, b2):
+            col = np.asarray(ids)[:, None]
+            return ((b2[None, :] == col).astype(np.float32) - (b1[None, :] == col).astype(np.float32))
+
+        sign = self._contact_sign(("net_each", ids), sign_fn)
+        if sign is None:
+            return zeros
+        imp = c.impulse[:, None] * sign[None, :, :, None]  # (B, L, C, 3)
+        return torch.sum(imp, 2) / self.model.timestep
 
     def get_pairwise_contact_forces(self, obj1, obj2) -> torch.Tensor:
         """Force exerted by obj1 on obj2, (B, 3)."""

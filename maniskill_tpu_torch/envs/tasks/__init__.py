@@ -1,3 +1,5 @@
 from . import tabletop
 from . import control
 from . import benchmark
+from . import quadruped
+from . import humanoid

@@ -1,10 +1,11 @@
 """Host-side asset cooking through ctypes over ``cooking.cpp`` (counterpart
 of maniskill_tpu/native/__init__.py).
 
-Closed-mesh mass properties, a PCA oriented bounding box, and support-point
-scans for the convex hull proxies of ``building/cooking.py``. The library
-is compiled with ``g++`` at first use into the package's gitignored
-``_build/`` (keyed by the source's hash) and loaded from there.
+Closed-mesh mass properties, a PCA oriented bounding box and capsule (the
+URDF loader's mesh colliders), and support-point scans for the convex hull
+proxies of ``building/cooking.py``. The library is compiled with ``g++`` at
+first use into the package's gitignored ``_build/`` (keyed by the source's
+hash) and loaded from there.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ def _lib() -> ctypes.CDLL:
         lib.mesh_mass_properties.restype = ctypes.c_int
         lib.fit_obb.argtypes = [d, ctypes.c_int64, d]
         lib.fit_obb.restype = ctypes.c_int
+        lib.fit_capsule.argtypes = [d, ctypes.c_int64, d]
+        lib.fit_capsule.restype = ctypes.c_int
         lib.support_points.argtypes = [d, ctypes.c_int64, d, ctypes.c_int64, i]
         lib.support_points.restype = ctypes.c_int
         _LIB = lib
@@ -83,6 +86,35 @@ def fit_obb(points: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     if _lib().fit_obb(_dp(pts), len(pts), _dp(out)) != 0:
         raise ValueError("need >= 3 points")
     return out[0:3].copy(), out[3:7].copy(), out[7:10].copy()
+
+
+def fit_capsule(points: np.ndarray):
+    """PCA capsule: (center (3,), quat wxyz (4,) whose +z is the major axis,
+    radius, half_length)."""
+    pts = np.ascontiguousarray(points.reshape(-1, 3), np.float64)
+    out = np.zeros(10, np.float64)
+    if _lib().fit_capsule(_dp(pts), len(pts), _dp(out)) != 0:
+        raise ValueError("need >= 3 points")
+    center, quat = out[0:3].copy(), out[3:7].copy()
+    radius, half_len, major = float(out[7]), float(out[8]), int(out[9])
+    # compose so that the capsule's local +z maps onto the OBB's major axis
+    if major == 0:  # +z -> +x: +90 degrees about y
+        extra = np.array([np.cos(np.pi / 4), 0, np.sin(np.pi / 4), 0])
+    elif major == 1:  # +z -> +y: -90 degrees about x
+        extra = np.array([np.cos(np.pi / 4), -np.sin(np.pi / 4), 0, 0])
+    else:
+        extra = np.array([1.0, 0, 0, 0])
+    w1, x1, y1, z1 = quat
+    w2, x2, y2, z2 = extra
+    quat = np.array(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ]
+    )
+    return center, quat, radius, half_len
 
 
 def support_points(points: np.ndarray, dirs: np.ndarray) -> np.ndarray:

@@ -1,8 +1,8 @@
 // Host-side asset cooking for the PyTorch/CUDA package (its own copy of
-// maniskill_tpu/native/cooking.cpp, less its capsule fit): closed-mesh
-// mass properties, a PCA OBB fit, and support-point scans for convex hull
-// proxies. Load time only; the step runs on the card. Exposed through
-// ctypes.
+// maniskill_tpu/native/cooking.cpp): closed-mesh mass properties, PCA OBB
+// and capsule fits (the URDF loader's mesh colliders), and support-point
+// scans for convex hull proxies. Load time only; the step runs on the
+// card. Exposed through ctypes.
 //
 // Build: g++ -O2 -shared -fPIC -o libcooking.so cooking.cpp
 #include <cmath>
@@ -205,6 +205,29 @@ int fit_obb(const double* pts, int64_t n, double* out) {
   out[7] = half[0];
   out[8] = half[1];
   out[9] = half[2];
+  return 0;
+}
+
+// Fit a capsule along the dominant PCA axis.
+// out: [center(3), quat_wxyz(4), radius, half_length]
+int fit_capsule(const double* pts, int64_t n, double* out) {
+  double obb[10];
+  if (fit_obb(pts, n, obb) != 0) return -1;
+  // dominant axis = largest half extent; radius from the other two
+  int major = 0;
+  for (int i = 1; i < 3; ++i)
+    if (obb[7 + i] > obb[7 + major]) major = i;
+  double radius = 0, half_len = obb[7 + major];
+  for (int i = 0; i < 3; ++i)
+    if (i != major) radius = std::max(radius, obb[7 + i]);
+  half_len = std::max(1e-6, half_len - radius);
+
+  // rotate so capsule +z aligns with the major axis: reorder via quat compose
+  // (handled on the python side using the OBB quaternion + axis index)
+  std::memcpy(out, obb, 7 * sizeof(double));
+  out[7] = radius;
+  out[8] = half_len;
+  out[9] = (double)major;
   return 0;
 }
 

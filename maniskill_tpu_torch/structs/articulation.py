@@ -103,6 +103,12 @@ class Articulation:
             qvel=scene.write_cols(d.qvel, self._vadr, scene.to_batch(value, self.dof))
         )
 
+    @property
+    def qlimits(self) -> torch.Tensor:
+        """(B, dof, 2) joint limits of the active joints."""
+        lim = self.scene.model.dof_limit[self._vadr]
+        return lim.expand(self.scene.num_envs, self.dof, 2)
+
     # -- root ------------------------------------------------------------
     @property
     def pose(self) -> Pose:
@@ -160,6 +166,13 @@ class Articulation:
         n = self.dof
         self.set_qpos(state[..., 13 : 13 + n])
         self.set_qvel(state[..., 13 + n : 13 + 2 * n])
+
+    # -- contacts --------------------------------------------------------
+    def get_net_contact_forces(self, link_names: Optional[List[str]] = None) -> torch.Tensor:
+        """(B, L, 3) net contact force on each named link (every link by
+        default)."""
+        links = [self.links_map[n] for n in link_names] if link_names else self.links
+        return self.scene.net_contact_forces_per_body([link.body_id for link in links])
 
     def __repr__(self):
         return f"Articulation({self.name}, dof={self.dof}, links={len(self.links)})"

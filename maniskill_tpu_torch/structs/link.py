@@ -68,5 +68,9 @@ class Link:
     def angular_velocity(self) -> torch.Tensor:
         return self.scene.data.cvel[:, self.body_id, 3:]
 
+    def get_net_contact_forces(self) -> torch.Tensor:
+        """(B, 3) net contact force on the link."""
+        return self.scene.net_contact_forces_for_bodies([self.body_id])
+
     def __repr__(self):
         return f"Link({self.name}, body={self.body_id})"

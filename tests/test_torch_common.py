@@ -3,6 +3,10 @@ files import them), and a check of the f32 solver switch they rely on.
 
 - ``tree(x, fn)`` maps ``fn`` over the leaves of a nested dict (a state dict
   handed from one package to the other).
+- ``reference_rollout`` steps a JAX env from its state after the reset
+  inside ``make`` with seeded uniform actions and keeps what the port is held
+  to; ``port_rollout`` starts the port's env from that state and takes the
+  same actions (the locomotion parity files).
 - ``assert_obs_close`` holds the port's obs tree to the JAX package's;
   ``assert_models_equal`` holds the port's ``Model`` to the JAX package's
   (candidate pairs, topology, per-env tables); ``numpy_fields`` reads a JAX
@@ -138,6 +142,60 @@ def numpy_fields(obj):
 
 def tree(x, fn):
     return {k: tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
+
+
+def reference_rollout(je, steps, seed=7, first_action=None, after_first=None):
+    """The JAX env ``je`` stepped ``steps`` control steps of seeded uniform
+    actions in [-1, 1] from its state after the reset inside ``make`` (a
+    second JAX reset would compile the reset again); ``first_action``, if
+    given, replaces the first of them, and ``after_first(base)`` is read
+    after it. Returns a dict: the start ``state``, ``obs0``, ``qpos0`` and
+    ``cvel0``, the ``actions``, ``after_first``'s value, and after the last
+    step the ``obs``, ``reward``, ``terminated`` and ``info`` as numpy, with
+    ``last`` the last step's raw (obs, info) for calling the env's own
+    methods."""
+    jb = je.unwrapped
+    out = dict(state=tree(jb.get_state_dict(), np.array), obs0=tree(jb._init_raw_obs, np.asarray),
+               qpos0=np.array(jb.scene.data.qpos), cvel0=np.array(jb.scene.data.cvel), actions=[])
+    rng = np.random.default_rng(seed)
+    for i in range(steps):
+        action = rng.uniform(-1, 1, (jb.num_envs,) + jb.single_action_space.shape).astype(np.float32)
+        if i == 0 and first_action is not None:
+            action = np.broadcast_to(np.asarray(first_action, np.float32), action.shape).copy()
+        jobs, jrew, jterm, _, jinfo = je.step(action)
+        out["actions"].append(action)
+        if i == 0 and after_first is not None:
+            out["after_first"] = after_first(jb)
+    out.update(obs=tree(jobs, np.asarray), reward=np.asarray(jrew), terminated=np.asarray(jterm),
+               info={k: np.asarray(v) for k, v in jinfo.items()}, last=(jobs, jinfo))
+    return out
+
+
+def port_rollout(te, ref):
+    """The port's env ``te`` started from the reference rollout's state and
+    stepped with its actions: a dict of ``obs0``, ``qpos0`` and ``cvel0``
+    after the reset and the last step's ``obs``, ``reward``, ``terminated``
+    and ``info``."""
+    obs0, _ = te.reset(seed=3, options=dict(reset_to_env_states=tree(ref["state"], torch.as_tensor)))
+    data = te.unwrapped.scene.data
+    out = dict(obs0=obs0, qpos0=data.qpos.clone(), cvel0=data.cvel.clone())
+    for action in ref["actions"]:
+        tobs, trew, tterm, _, tinfo = te.step(torch.as_tensor(action))
+    out.update(obs=tobs, reward=trew, terminated=tterm, info=tinfo)
+    return out
+
+
+def assert_tree_close(tobs, jobs, atol, what):
+    """Numpy-tree version of ``assert_obs_close``: every leaf of ``jobs``
+    (numpy) within ``atol`` of the port's leaf at the same path, and the
+    same keys on both sides."""
+    if isinstance(jobs, dict):
+        assert sorted(tobs) == sorted(jobs), (what, sorted(tobs), sorted(jobs))
+        for k in jobs:
+            assert_tree_close(tobs[k], jobs[k], atol, f"{what}.{k}")
+        return
+    np.testing.assert_allclose(tobs.numpy().astype(np.float32), np.asarray(jobs, np.float32), rtol=0, atol=atol,
+                               err_msg=what)
 
 
 @contextlib.contextmanager

@@ -150,6 +150,40 @@ def test_pick_single_ycb_state_step_makes_no_sync(cuda):
     assert data.contact.overflow.tolist() == [0] * n
 
 
+@pytest.mark.parametrize("env_id", ["AnymalC-Reach-v1", "MS-HumanoidWalk-v1"])
+def test_locomotion_step_makes_no_sync(cuda, env_id):
+    """A URDF-loaded quadruped (whose reward reads per-link contact forces)
+    and the humanoid (a FREE root over chains of 1e-4 kg dummy bodies) on
+    the card: a control step makes no host sync; the obs and state stay
+    finite; the per-link forces equal the per-body queries."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    n = 16
+    env = make(env_id, num_envs=n, obs_mode="state", control_mode="pd_joint_delta_pos", device=cuda)
+    base = env.unwrapped
+    robot = base.agent.robot
+    zero = torch.zeros((n,) + base.single_action_space.shape, device=cuda)
+    env.reset(seed=0)
+    for _ in range(3):  # builds the lazy tables (contact signs); the humanoid lands
+        env.step(zero)
+    robot.get_net_contact_forces()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        obs, reward, *_ = env.step(zero)
+        forces = robot.get_net_contact_forces()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    data = base.scene.data
+    assert obs.is_cuda and torch.isfinite(obs).all() and torch.isfinite(reward).all()
+    assert torch.isfinite(data.qpos).all() and torch.isfinite(data.qvel).all()
+    assert data.contact.overflow.tolist() == [0] * n
+    per_body = torch.stack([base.scene.net_contact_forces_for_bodies([link.body_id]) for link in robot.links], 1)
+    torch.testing.assert_close(forces, per_body, rtol=0, atol=1e-4)
+    assert forces[..., 2].sum(1).min().item() > 0  # the feet carry the robot
+
+
 def test_pick_single_ycb_rgb_through_the_kernel(cuda):
     """One PickSingleYCB-v1 rgb frame over per-env hull meshes goes through
     the kernel once per camera; re-rendered through the plain version its
