@@ -18,6 +18,12 @@ from .pd_ee_pose import (
     PDEEPoseControllerConfig,
 )
 from .pd_joint_vel import PDJointVelController, PDJointVelControllerConfig
+from .pd_base_vel import (
+    PDBaseForwardVelController,
+    PDBaseForwardVelControllerConfig,
+    PDBaseVelController,
+    PDBaseVelControllerConfig,
+)
 
 __all__ = [
     "BaseController", "CombinedController", "ControllerConfig", "DictController",
@@ -27,4 +33,6 @@ __all__ = [
     "PDEEPosController", "PDEEPosControllerConfig",
     "PDEEPoseController", "PDEEPoseControllerConfig",
     "PDJointVelController", "PDJointVelControllerConfig",
+    "PDBaseVelController", "PDBaseVelControllerConfig",
+    "PDBaseForwardVelController", "PDBaseForwardVelControllerConfig",
 ]

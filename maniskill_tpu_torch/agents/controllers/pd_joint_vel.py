@@ -28,8 +28,11 @@ class PDJointVelControllerConfig(ControllerConfig):
 
 
 class PDJointVelController(BaseController):
+    def _action_dim(self) -> int:
+        return len(self.config.joint_names)
+
     def _initialize_action_space(self):
-        n = len(self.config.joint_names)
+        n = self._action_dim()
         lo = np.broadcast_to(np.asarray(self.config.lower, np.float32), (n,)).copy()
         hi = np.broadcast_to(np.asarray(self.config.upper, np.float32), (n,)).copy()
         self._lo_t = torch.as_tensor(lo, device=self.scene.device)

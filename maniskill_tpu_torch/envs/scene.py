@@ -201,6 +201,29 @@ class ManiSkillScene:
         gp[:, gids] = torch.as_tensor(np.asarray(pos, np.float32), device=self.device)
         self.model = self.model.replace(geom_pos=gp)
 
+    def set_per_env_body_pos(self, body_ids, pos):
+        """pos: (B, K, 3) host array, the joint-frame origins of bodies
+        ``body_ids`` (K,) in their parent's frame in each env (a drawer's
+        height or a hinge's place differs per env)."""
+        bids = np.asarray(body_ids, np.int64)
+        bp = self._per_env(self.model.body_pos, 2)
+        bp[:, bids] = torch.as_tensor(np.asarray(pos, np.float32), device=self.device)
+        self.model = self.model.replace(body_pos=bp)
+
+    def set_per_env_dof_limits(self, dof_adrs, limits):
+        """limits: (B, K, 2) host array, the lower and upper limits of dofs
+        ``dof_adrs`` (K,) in each env. A dof locked to [0, 0] is how an env
+        lacks a part of a union template under one static shape. The dofs
+        must have been limited at build time (the device plan holds only the
+        limited dofs' indices, never their values); ``host_dof_limit`` keeps
+        the build-time limits."""
+        adrs = np.asarray(dof_adrs, np.int64)
+        assert bool(np.asarray(self.model.dof_limited)[adrs].all()), (
+            "per-env limits require dofs marked limited at build time")
+        dl = self._per_env(self.model.dof_limit, 2)
+        dl[:, adrs] = torch.as_tensor(np.asarray(limits, np.float32), device=self.device)
+        self.model = self.model.replace(dof_limit=dl)
+
     def set_per_env_hulls(self, actor, hulls):
         """Per-env convex hull geometry of one actor (a different object in
         each env).

@@ -3,3 +3,4 @@ from . import control
 from . import benchmark
 from . import quadruped
 from . import humanoid
+from . import mobile_manipulation

@@ -286,8 +286,10 @@ def make_data(model: Model, batch_size: int, qpos0: Optional[np.ndarray] = None)
     mocap = None
     if model.mocap_bodies is not None:
         mb = torch.as_tensor(np.asarray(model.mocap_bodies, np.int64), device=dev)
-        mocap = torch.cat([model.body_pos[mb], model.body_quat[mb]], -1)
-        mocap = mocap.expand(B, len(model.mocap_bodies), 7).clone()
+        # gathered on the body axis: the tables may carry a leading env axis
+        pos = model.body_pos[..., mb, :].expand(B, len(mb), 3)
+        quat = model.body_quat[..., mb, :].expand(B, len(mb), 4)
+        mocap = torch.cat([pos, quat], -1).clone()
     return Data(
         qpos=qpos,
         qvel=z(B, model.nv),

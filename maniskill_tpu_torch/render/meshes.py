@@ -81,9 +81,9 @@ def cylinder_mesh(n: int = 16) -> Tuple[np.ndarray, np.ndarray]:
     faces = []
     for j in range(n):
         j2 = (j + 1) % n
-        # side
-        faces.append([j, n + j, n + j2])
-        faces.append([j, n + j2, j2])
+        # side, wound outward like the caps: the tiled path culls back faces
+        faces.append([j, n + j2, n + j])
+        faces.append([j, j2, n + j2])
         # caps
         faces.append([2 * n, j2, j])
         faces.append([2 * n + 1, n + j, n + j2])

@@ -105,8 +105,9 @@ class Articulation:
 
     @property
     def qlimits(self) -> torch.Tensor:
-        """(B, dof, 2) joint limits of the active joints."""
-        lim = self.scene.model.dof_limit[self._vadr]
+        """(B, dof, 2) joint limits of the active joints, each env's own once
+        the limits are set per env."""
+        lim = self.scene.model.dof_limit[..., self._vadr, :]
         return lim.expand(self.scene.num_envs, self.dof, 2)
 
     # -- root ------------------------------------------------------------

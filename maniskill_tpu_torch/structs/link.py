@@ -72,5 +72,14 @@ class Link:
         """(B, 3) net contact force on the link."""
         return self.scene.net_contact_forces_for_bodies([self.body_id])
 
+    @property
+    def geom_ids(self) -> np.ndarray:
+        """The ids of this link's geoms in the model."""
+        return np.nonzero(np.asarray(self.scene.model.geom_body) == self.body_id)[0]
+
+    @property
+    def is_root(self) -> bool:
+        return self.articulation is not None and self.articulation.root is self
+
     def __repr__(self):
         return f"Link({self.name}, body={self.body_id})"

@@ -78,7 +78,7 @@ def main():
     }
     n_sub = base.sim_config.sim_steps_per_control
 
-    prof, prof_sum = profile_calls(lambda: env.step(action), PROFILE_STEPS)
+    prof, prof_sum = profile_calls(lambda: env.step(action), PROFILE_STEPS, cpu_ops=True)
     events = prof.key_averages()
     summary = dict(
         env=args.env, num_envs=args.num_envs, obs_mode=args.obs_mode, card=card,

@@ -243,3 +243,70 @@ def test_f32_solver_makes_the_bf16_cast_an_identity():
         np.testing.assert_array_equal(np.asarray(exact), np.asarray(x))
     assert jsolver.jnp is jnp
     np.testing.assert_array_equal(np.asarray(cast(x)), rounded)
+
+
+def _per_env_scene(num_envs=3):
+    """A port scene on the CPU with a kinematic marker (a mocap body) and an
+    articulation: a base, a child sliding on a limited joint and one turning
+    on an unlimited hinge."""
+    from maniskill_tpu_torch.building import actors
+    from maniskill_tpu_torch.building.articulation_builder import ArticulationBuilder, LinkSpec, ShapeSpec
+    from maniskill_tpu_torch.envs.scene import ManiSkillScene
+    from maniskill_tpu_torch.physics.types import BOX, HINGE, SLIDE
+
+    scene = ManiSkillScene(num_envs=num_envs, device="cpu")
+    marker = actors.build_sphere(scene, radius=0.02, color=[0, 1, 0, 1], name="marker", body_type="kinematic",
+                                 add_collision=False, initial_pose=np.array([0.1, 0.2, 0.3, 0, 1, 0, 0]))
+    b = ArticulationBuilder(scene)
+    box = [ShapeSpec(BOX, (0.1, 0.1, 0.1))]
+    b.add_link(LinkSpec("base", None, collisions=box, visuals=box))
+    b.add_link(LinkSpec("slider", "base", SLIDE, "slide", origin_pos=(0.5, 0, 0), axis=(1, 0, 0),
+                        limit=(0.0, 0.3), collisions=box, visuals=box))
+    b.add_link(LinkSpec("spinner", "base", HINGE, "spin", origin_pos=(-0.5, 0, 0), collisions=box, visuals=box))
+    art = b.build("art")
+    scene.finalize()
+    return scene, marker, art
+
+
+def test_mocap_poses_with_per_env_body_pos():
+    """``make_data`` reads the markers' initial poses on the body axis, so a
+    scene with per-env joint frames keeps them (an env-axis gather picked
+    other rows or failed on the shape)."""
+    from maniskill_tpu_torch import physics
+
+    scene, marker, art = _per_env_scene()
+    slider = art.links_map["slider"]
+    pos = np.array([[[0.5, 0.0, 0.0]], [[0.6, 0.1, 0.0]], [[0.7, 0.0, 0.2]]], np.float32)
+    scene.set_per_env_body_pos([slider.body_id], pos)
+    assert scene.model.body_pos.shape == (3, scene.model.nbody, 3)
+    data = physics.make_data(scene.model, 3)
+    want = torch.tensor([0.1, 0.2, 0.3, 0, 1, 0, 0]).expand(3, 7)
+    np.testing.assert_array_equal(data.mocap_pose[:, marker._mocap_idx].numpy(), want.numpy())
+    data = physics.forward(scene.model, data)
+    np.testing.assert_allclose(data.xpos[:, slider.body_id].numpy(), pos[:, 0] + data.xpos[:, art.root.body_id].numpy(),
+                               rtol=0, atol=1e-6)
+
+
+def test_qlimits_reads_per_env_limits():
+    """``Articulation.qlimits`` gathers the dof axis, so per-env limits come
+    back per env (an env-axis gather returned other envs' rows)."""
+    scene, _, art = _per_env_scene()
+    np.testing.assert_array_equal(art.qlimits[:, 0].numpy(), np.broadcast_to(np.float32([0.0, 0.3]), (3, 2)))
+    limits = np.array([[[0.0, 0.0]], [[0.0, 0.1]], [[-0.2, 0.4]]], np.float32)
+    scene.set_per_env_dof_limits([art.joints_map["slide"].dof_adr], limits)
+    assert art.qlimits.shape == (3, 2, 2)
+    np.testing.assert_array_equal(art.qlimits[:, :1].numpy(), limits)
+    assert np.isinf(art.qlimits[:, 1].numpy()).all()
+    with pytest.raises(AssertionError):  # only dofs limited at build time take per-env limits
+        scene.set_per_env_dof_limits([art.joints_map["spin"].dof_adr], limits)
+
+
+def test_link_geom_ids_and_is_root():
+    """``Link.geom_ids`` lists the link's geoms (collision and visual), which
+    ``scene.set_per_env_hulls`` reads; ``is_root`` marks the root link."""
+    scene, _, art = _per_env_scene()
+    gb = np.asarray(scene.model.geom_body)
+    for link in art.links:
+        ids = link.geom_ids
+        assert len(ids) == 2 and (gb[ids] == link.body_id).all()
+    assert art.links_map["base"].is_root and not art.links_map["slider"].is_root

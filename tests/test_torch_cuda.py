@@ -150,6 +150,40 @@ def test_pick_single_ycb_state_step_makes_no_sync(cuda):
     assert data.contact.overflow.tolist() == [0] * n
 
 
+@pytest.mark.parametrize("env_id", ["OpenCabinetDrawer-v1", "OpenCabinetDoor-v1"])
+def test_cabinet_tables_on_card_equal_cpu(cuda, env_id):
+    """The procedural cabinets' per-env tables (joint frames, limits, geom
+    sizes and offsets, the task's targets and handles) built on the card
+    equal those built on the CPU; a control step with the Fetch makes no
+    host sync and the state stays finite."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    n = 16
+    envs = {dev: make(env_id, num_envs=n, obs_mode="state", device=dev) for dev in ("cpu", cuda)}
+    cpu, card = envs["cpu"].unwrapped, envs[cuda].unwrapped
+    for f in ("body_pos", "dof_limit", "geom_size", "geom_pos"):
+        want = getattr(cpu.scene.model, f)
+        assert want.shape[0] == n, f
+        torch.testing.assert_close(getattr(card.scene.model, f).cpu(), want, rtol=0, atol=0, msg=f)
+    for f in ("target_slot", "target_onehot", "handle_local", "slot_limits", "active_mask"):
+        torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f), rtol=0, atol=0, msg=f)
+    torch.testing.assert_close(card.cabinet.qlimits.cpu(), cpu.cabinet.qlimits, rtol=0, atol=0)
+    env = envs[cuda]
+    zero = torch.zeros(n, 13, device=cuda)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        obs, reward, *_ = env.step(zero)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    data = card.scene.data
+    assert obs.is_cuda and torch.isfinite(obs).all() and torch.isfinite(reward).all()
+    assert torch.isfinite(data.qpos).all() and data.contact.overflow.tolist() == [0] * n
+
+
 @pytest.mark.parametrize("env_id", ["AnymalC-Reach-v1", "MS-HumanoidWalk-v1"])
 def test_locomotion_step_makes_no_sync(cuda, env_id):
     """A URDF-loaded quadruped (whose reward reads per-link contact forces)

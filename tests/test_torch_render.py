@@ -11,6 +11,8 @@ maniskill_tpu_torch.sensors) with the JAX package's, on the CPU.
   kernel's semantics): equal on every pixel, including ragged sizes.
 - The camera (all modalities) against the JAX camera on the cartpole scene,
   with the thresholds of tests/test_render.py:100-108.
+- Every primitive mesh wound outward, and a cylinder drawn by the culled
+  tiled path equal to the two-sided face-chunked path.
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py.
 """
@@ -197,3 +199,35 @@ def test_view_and_projection_matrices():
                                       jrasterizer.look_at_matrix(eye, target))
     np.testing.assert_array_equal(trasterizer.perspective_matrix(1.1, 1.6, 0.01, 50.0),
                                   jrasterizer.perspective_matrix(1.1, 1.6, 0.01, 50.0))
+
+
+@pytest.mark.parametrize("gtype", ["box", "sphere", "cylinder", "capsule"])
+def test_primitive_meshes_wound_outward(gtype):
+    """Every face of each primitive mesh is wound outward, as the tiled
+    path's back-face culling assumes (the JAX package's cylinder side faces
+    are wound inward: culled, a cylinder loses its near side), and a
+    cylinder drawn by the culled tiled path covers the same pixels as the
+    two-sided face-chunked path."""
+    from maniskill_tpu_torch.physics.types import BOX, CAPSULE, CYLINDER, SPHERE
+    from maniskill_tpu_torch.render.meshes import geom_mesh
+
+    kind = dict(box=BOX, sphere=SPHERE, cylinder=CYLINDER, capsule=CAPSULE)[gtype]
+    v, f = geom_mesh(kind, np.array([0.3, 0.2, 0.1], np.float32))
+    a, b, c = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    normal = np.cross(b - a, c - a)
+    assert (np.sum(normal * (a + b + c) / 3, 1) > 0).all()
+    if kind == CYLINDER:
+        scene = TScene(num_envs=1, device="cpu")
+        builder = scene.create_actor_builder()
+        builder.add_cylinder_visual(radius=0.3, half_length=0.2, color=[1, 0, 0, 1])
+        builder.build_static("cylinder")
+        scene.finalize()
+        scene.bind(tphys.forward(scene.model, tphys.make_data(scene.model, 1)))
+        cam = TCamera(TCameraConfig("cam", tlook_at([0.9, 0.5, 0.8], [0, 0, 0]), 64, 64, 1.0, 0.01, 10), scene)
+        mesh = cam._get_mesh(())
+        gpos, gquat = tphys.geom_poses(scene.model, scene.data)
+        args = (mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj, 64, 64)
+        culled = trasterizer.rasterize(*args)["seg"]
+        two_sided = trasterizer.rasterize(*args, want_normal=True)["seg"]
+        assert (culled > 0).sum() > 500
+        np.testing.assert_array_equal(culled.numpy(), two_sided.numpy())
