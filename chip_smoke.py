@@ -150,14 +150,41 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      maniskill_tpu_torch/examples/baselines/ppo.py (rollout 16, 4 epochs x
      8 minibatches), 2 iterations: as phase 10, the profiled rollout cut
      to 2 of its 16 steps (the profiler takes ~5 s to read each).
+ 29. PPO on PushCube-v1 rgbd, 512 envs, phase 12's recipe (rollout 8, 4
+     epochs x 8 minibatches), 2 iterations: as phase 12 (the profiled
+     rollout cut to 2 of its 8 steps), and the policy's depth tower: the
+     depth obs int16 mm, nonzero in the lower half of every frame (table and
+     robot), the features finite and moved by the depth, the last frame's
+     int16 depth equal to the plain re-render; the kernel's ms per frame
+     against its bound.
+ 30. SAC on PushCube-v1 state, 128 envs, the CLI's defaults (rollout 4, ring
+     512, batch 4096, utd 4): 4 warm-up and 6 learning train steps; losses,
+     alpha and params finite, the actor changed; collect and update_once
+     ms, env-steps/s; one profiled learning train step with 0 stream/event
+     syncs and 0 host-to-device copies; the 60-step greedy evaluation's
+     success; one update_once at 8 envs on the card and on the CPU from one
+     host state and host draws (losses and gradients within 1e-4 relative,
+     params within 2 x lr and within 1e-5 on >= 0.999 of the entries, as
+     tests/test_torch_sac.py holds the JAX package).
+ 31. TD-MPC2 on PushCube-v1 state, 32 envs, the CLI's defaults (horizon 3,
+     512 samples, 24 policy trajectories, 64 elites, 6 iterations, latent
+     and mlp 512, 5 Q heads, batch 256, 2 updates, ring 1000, rollout 4):
+     13 warm-up train steps (a whole episode in the ring) and 3 learning
+     ones; losses and params finite, the policy changed, every planned
+     action in [-1, 1]; the planner's ms per control step against its
+     float32 bound (planner_flops over 67 TFLOP/s), its launches, update_once
+     ms, env-steps/s; one profiled learning train step with 0 syncs and 0
+     copies; one plan at 4 envs on the card and on the CPU from host
+     latents and draws, action and mean within 1e-5.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
  and the YCB solution syncs twice once (the grasp PCA's read and write),
  besides one sync per move.
 Phases 6 and 8 time 10 steps, phase 10 runs 2 PPO iterations, phase 14
-times 10 steps per mode, phase 15 16 step pairs and phases 21 and 23 5
-steps per task, so that the whole run stays well inside its time limit.
+times 10 steps per mode, phase 15 16 step pairs, phases 21 and 23 5 steps
+per task and phases 30-31 10 and 16 train steps, so that the whole run
+stays well inside its time limit.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on each path, errors, times and bounds.
 """
@@ -307,6 +334,27 @@ PPO_CABINET_PROFILE_STEPS = 2
 # iterations run here, total steps of the recipe for the learning-rate decay)
 PPO_STATE = ("PickCube-v1", 4096, 4, 8, 32, 2, 100_000_000)
 PPO_RGB = ("PushCube-v1", 512, 8, 4, 8, 2, 12_000_000)
+# phase 29: visual PPO on PushCube rgbd at PPO_RGB's recipe; 2 of the 8
+# rollout steps profiled
+PPO_RGBD = ("PushCube-v1", 512, 8, 4, 8, 2, 12_000_000)
+PPO_RGBD_PROFILE_STEPS = 2
+# phase 30: SAC on PushCube state at the CLI's defaults
+# (maniskill_tpu_torch/examples/baselines/sac.py): (env, envs, warm-up train
+# steps, learning train steps)
+SAC_CELL = ("PushCube-v1", 128, 4, 6)
+# phase 31: TD-MPC2 on PushCube state at the CLI's defaults
+# (examples/baselines/tdmpc2.py): 13 warm-up train steps of rollout 4 put a
+# whole 50-step episode in the ring, then learning steps
+TDMPC2_CELL = ("PushCube-v1", 32, 13, 3)
+# one update (SAC) and one plan (TD-MPC2) on the card against the CPU port
+# from one host state and host draws, at these envs, held to the CPU parity
+# tests' tolerances: tests/test_torch_sac.py (losses and gradients 1e-4
+# relative; params within 2 x lr of each other, within 1e-5 on >= 0.999 of
+# the entries) and tests/test_torch_tdmpc2.py (the plan at 1e-5)
+SAC_PARITY_ENVS, TDMPC2_PARITY_ENVS = 8, 4
+UPDATE_LOSS_TOL, UPDATE_PARAM_TOL, UPDATE_PARAM_SHARE = 1e-4, 1e-5, 0.999
+PLAN_TOL = 1e-5
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (an FMA counts two)
 STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
 RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
 SEG_AGREE_MIN = 0.999  # re-render seg agreement bound (the kernel is bit-exact: expect 1.0)
@@ -415,7 +463,7 @@ def ppo_phase(torch, dev, make, card, obs_mode, cell, kernel, profile_steps=None
     obs = trainer.obs_tf(obs)
     elapsed = torch.zeros(n_envs, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
-    print(f"{name}: env and trainer built in {time.perf_counter() - t0:.2f} s")
+    print(f"{name}: env and trainer built in {time.perf_counter() - t0:.2f} s {card}")
     if kernel is not None:
         kernel.launches = 0
     roll_ms, upd_ms = [], []
@@ -433,7 +481,7 @@ def ppo_phase(torch, dev, make, card, obs_mode, cell, kernel, profile_steps=None
         for k in ("bad_params", "bad_obs", "bad_rewards"):
             check(m[k] == 0, f"{name}: {k} = {m[k]}")
         print(f"{name}: loss {m['loss']:.4f} mean_reward {m['mean_reward']:.4f} "
-              f"ep_success {m['ep_success']:.3f} max_adv {m['max_adv']:.3g}")
+              f"ep_success {m['ep_success']:.3f} max_adv {m['max_adv']:.3g} {card}")
     launches = None
     if kernel is not None:
         launches, want = kernel.launches, 2 * rollout * iters
@@ -1549,6 +1597,283 @@ def cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, path
     return err
 
 
+def kernel_times(kernel, tr, inputs, height: int, width: int):
+    """The raster kernel's and its plain version's ms per frame on
+    ``inputs`` (CUDA events) and its bound; the launches made here are not
+    main-path launches."""
+    from maniskill_tpu_torch.utils.timing import cuda_ms
+
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, height, width)
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, height, width), 20)
+    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, height, width), 1)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, height, width)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 29: visual PPO on PushCube rgbd (a depth tower beside the rgb
+    one). Returns the kernel's max depth error against the plain version."""
+    kernel = tr.KERNEL
+    env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgbd", PPO_RGBD, kernel,
+                                            profile_steps=PPO_RGBD_PROFILE_STEPS)
+    base, n_envs, name = env.unwrapped, PPO_RGBD[1], "pushcube ppo rgbd"
+    depth = obs["depth"]
+    check(tuple(depth.shape) == (n_envs, 128, 128, 1) and depth.dtype == torch.int16,
+          f"{name}: depth obs is {tuple(depth.shape)} {depth.dtype}")
+    # the table and the robot fill the lower half of the base camera's view
+    check(bool((depth[:, 64:] > 0).all()), f"{name}: depth 0 where the table is in view")
+    net = trainer.model.feature_net
+    check(net.image_keys == ("rgb", "depth"), f"{name}: the policy's towers are {net.image_keys}")
+    with torch.no_grad():
+        feats = net(obs)
+        blind = net(dict(obs, depth=torch.zeros_like(depth)))
+    depth_feats = slice(256, 512)  # rgb, depth, state features of 256 each
+    check(bool(torch.isfinite(feats).all()), f"{name}: the features are not finite")
+    check(not bool(torch.equal(feats[:, depth_feats], blind[:, depth_feats])), f"{name}: the depth tower ignores depth")
+    inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, obs["rgb"], name,
+                                        depth=depth)
+    path = dict(launches=launches, **kernel_times(kernel, tr, inputs, 128, 128))
+    paths[f"pushcube_ppo_rgbd_{n_envs}"] = path
+    print(f"{name}: the depth obs int16 mm, nonzero below the horizon in every env (max {int(depth.max())} mm); "
+          f"depth features finite and moved by the depth; the last frame of 16 envs re-rendered through the plain "
+          f"version: int16 depth equal, seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal {card}")
+    print(f"raster kernel (pushcube rgbd, {n_envs}x128x128): {path['ms']:.4f} ms/frame vs plain "
+          f"{path['plain_ms']:.3f} ms, bound {path['bound_ms']:.4f} ms ({path['bound_by']}) {card}")
+    return err
+
+
+def _rel_err(a, b):
+    """max |a - b| over max(1, max |a|)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(1.0, float(a.abs().max()))
+
+
+def _check_params(torch, name, cpu_module, dev_module, bound):
+    """The card's params within ``bound`` of the CPU's everywhere and within
+    UPDATE_PARAM_TOL on UPDATE_PARAM_SHARE of the entries."""
+    diffs = torch.cat([(a.detach().double() - b.detach().double().cpu()).abs().ravel()
+                       for a, b in zip(cpu_module.parameters(), dev_module.parameters())])
+    share = float((diffs <= UPDATE_PARAM_TOL).double().mean())
+    check(float(diffs.max()) <= bound and share >= UPDATE_PARAM_SHARE,
+          f"{name}: the card's params part from the CPU's by up to {float(diffs.max()):.3g} "
+          f"({share:.5f} within {UPDATE_PARAM_TOL})")
+    return float(diffs.max()), share
+
+
+def sac_update_parity(torch, dev, make, card):
+    """One SAC update on the card and on the CPU from one host state (the
+    trainers' seeded init, a ring of numpy draws) and host draws."""
+    from maniskill_tpu_torch.parallel.sac import SACConfig, SACTrainer
+
+    rng = np.random.default_rng(0)
+    config, uid = SACConfig(), SAC_CELL[0]
+    trainers = []  # the CPU's, the card's
+    for d in ("cpu", dev):
+        env = make(uid, num_envs=SAC_PARITY_ENVS, obs_mode="state", device=d)
+        obs, _ = env.reset(seed=0)
+        trainers.append(SACTrainer(env, config, obs.shape[-1], seed=2))
+    tr = trainers[0]
+    S, B, D, A, bs = config.buffer_steps, SAC_PARITY_ENVS, tr.buf_obs.shape[-1], tr.act_dim, config.batch_size
+    state = dict(buf_obs=rng.normal(size=(S, B, D)), buf_act=rng.uniform(-1, 1, (S, B, A)),
+                 buf_rew=rng.uniform(0, 1, (S, B)), buf_next_obs=rng.normal(size=(S, B, D)),
+                 buf_term=rng.uniform(size=(S, B)) < 0.1)
+    draws = dict(idx=rng.integers(0, S * B, bs), eps_q=rng.normal(size=(bs, A)), eps_pi=rng.normal(size=(bs, A)))
+    losses = []
+    for t in trainers:
+        for k, v in state.items():
+            setattr(t, k, torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.float32, device=t.device))
+        t.filled = S
+        losses.append(t.update_once({k: torch.as_tensor(v, dtype=torch.int64 if k == "idx" else torch.float32,
+                                                      device=t.device) for k, v in draws.items()}))
+    torch.cuda.synchronize()
+    cpu, card_tr = trainers
+    errs = {"q loss": _rel_err(losses[0][0], losses[1][0]), "actor loss": _rel_err(losses[0][1], losses[1][1]),
+            "log_alpha grad": _rel_err(cpu.log_alpha.grad, card_tr.log_alpha.grad)}
+    for what in ("actor", "qnet"):
+        for (k, a), b in zip(getattr(cpu, what).named_parameters(), getattr(card_tr, what).parameters()):
+            errs[f"{what}.{k} grad"] = _rel_err(a.grad, b.grad)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= UPDATE_LOSS_TOL, f"sac update, card vs CPU: {worst} parts by {errs[worst]:.3g} relative")
+    check(abs(float(cpu.log_alpha.detach()) - float(card_tr.log_alpha.detach())) <= 1e-6, "sac update, card vs CPU: log_alpha parts")
+    bound = 2 * config.lr
+    dmax = max(_check_params(torch, f"sac update {what}", getattr(cpu, what), getattr(card_tr, what), bound)[0]
+               for what in ("actor", "qnet", "q_target"))
+    print(f"sac update_once on the card == the CPU port's from one host state and draws ({SAC_PARITY_ENVS} envs, "
+          f"batch {bs}): losses and gradients within {errs[worst]:.3g} relative (bound {UPDATE_LOSS_TOL}, "
+          f"worst {worst}); params within {dmax:.3g} (bound {bound:.1e}) {card}")
+
+
+def sac_phase(torch, dev, make, card):
+    """Phase 30: SAC on PushCube state through ``SACTrainer.train_step`` at
+    the CLI's defaults: collect and update ms, env-steps/s, one profiled
+    learning step (0 syncs, 0 host-to-device copies), the greedy
+    evaluation, and one update held to the CPU port's."""
+    from maniskill_tpu_torch.parallel.sac import SACConfig, SACTrainer, evaluate
+    from maniskill_tpu_torch.utils.timing import cuda_ms, profile_calls
+
+    uid, n_envs, warmup, learn_steps = SAC_CELL
+    name = f"sac state {uid} x{n_envs}"
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="state", device=dev)
+    obs, _ = env.reset(seed=1)
+    config = SACConfig()
+    trainer = SACTrainer(env, config, obs.shape[-1], seed=1)
+    elapsed = torch.zeros(n_envs, dtype=torch.int32, device=dev)
+    before = [p.detach().clone() for p in trainer.actor.parameters()]
+    torch.cuda.synchronize()
+    print(f"{name}: env and trainer built in {time.perf_counter() - t0:.2f} s {card}")
+    step_s = []
+    for it in range(warmup + learn_steps):
+        t0 = time.perf_counter()
+        obs, elapsed, metrics = trainer.train_step(obs, elapsed, learn=it >= warmup)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    m = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in m.values()), f"{name}: metrics {m}")
+    params = list(trainer.actor.parameters()) + list(trainer.qnet.parameters())
+    check(all(bool(torch.isfinite(p).all()) for p in params), f"{name}: non-finite params")
+    check(any(not bool(torch.equal(a, b)) for a, b in zip(before, trainer.actor.parameters())),
+          f"{name}: the actor did not change")
+    check(trainer.filled == (warmup + learn_steps) * config.rollout_steps, f"{name}: ring filled {trainer.filled}")
+    collect_ms = float(np.median(step_s[1:warmup])) * 1e3  # the first step initializes the libraries
+    update_ms = cuda_ms(lambda: trainer.update_once(), config.utd)
+    learn_s = sum(step_s[warmup:])
+    print(f"{name}: q_loss {m['q_loss']:.4f} actor_loss {m['actor_loss']:.4f} alpha {m['alpha']:.4f} {card}")
+    print(f"{name} rate: {n_envs * config.rollout_steps * learn_steps / learn_s:.1f} env-steps/s over "
+          f"{learn_steps} learning train steps ({learn_s / learn_steps * 1e3:.1f} ms each); collect "
+          f"{collect_ms:.1f} ms per train step ({config.rollout_steps} control steps), update_once "
+          f"{update_ms:.2f} ms (x{config.utd} per train step, batch {config.batch_size}) {card}")
+    out = []
+    _, prof = profile_calls(lambda: out.append(trainer.train_step(obs, elapsed, learn=True)), 1)
+    obs, elapsed, _ = out[0]
+    print(f"{name} profile of one learning train step: {prof['launches']:.0f} launches, {prof['syncs']:.0f} "
+          f"stream/event syncs, {prof['h2d_copies']:.0f} host-to-device copies, device kernels "
+          f"{prof['device_kernel_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (idle {prof['device_idle_share']:.3f}) {card}")
+    check(prof["syncs"] == 0, f"{name}: the train step syncs with the device")
+    check(prof["h2d_copies"] == 0, f"{name}: the train step copies host to device")
+    t0 = time.perf_counter()
+    success, mean_reward = evaluate(env, trainer.actor, seed=1001)
+    rate = float(success.float().mean())
+    check(np.isfinite(float(mean_reward)), f"{name}: eval reward {float(mean_reward)}")
+    print(f"{name}: greedy eval over 60 steps: success(any) {rate:.6f} mean_reward {float(mean_reward):.4f} "
+          f"in {time.perf_counter() - t0:.2f} s {card}")
+    del env, trainer
+    sac_update_parity(torch, dev, make, card)
+
+
+def planner_flops(cfg, n_envs: int, act_dim: int, iterations: int) -> float:
+    """Float32 operations (2 per multiply-add) of one plan's matrix
+    products: per sample and iteration the value estimate (H x (dynamics +
+    reward head), the policy's mean, the Q heads), plus the policy-prior
+    trajectories (H x (policy + dynamics))."""
+    L, M, A, nb, H = cfg.latent_dim, cfg.mlp_dim, act_dim, cfg.num_bins, cfg.horizon
+    dyn = (L + A) * M + M * M + M * L
+    rew = q_head = (L + A) * M + M * M + M * nb
+    pi_mean, pi = L * M + M * M + M * A, L * M + M * M + 2 * M * A
+    value = H * (dyn + rew) + pi_mean + cfg.num_q * q_head
+    return 2.0 * n_envs * (cfg.num_samples * iterations * value + cfg.num_pi_trajs * H * (pi + dyn))
+
+
+def tdmpc2_plan_parity(torch, dev, make, card, trainer):
+    """One plan on the card and on the CPU port from the card trainer's
+    weights, host latents, a host warm start and host draws."""
+    from maniskill_tpu_torch.parallel.tdmpc2 import TDMPC2Trainer
+
+    rng = np.random.default_rng(0)
+    env = make(TDMPC2_CELL[0], num_envs=TDMPC2_PARITY_ENVS, obs_mode="state", device="cpu")
+    obs, _ = env.reset(seed=0)
+    cpu = TDMPC2Trainer(env, trainer.config, obs.shape[-1])
+    cpu.model.load_state_dict(trainer.model.state_dict())
+    cpu.pi.load_state_dict(trainer.pi.state_dict())
+    cfg, B, A = trainer.config, TDMPC2_PARITY_ENVS, trainer.act_dim
+    H, N, P, E = cfg.horizon, cfg.num_samples, cfg.num_pi_trajs, cfg.num_elites
+    with torch.no_grad():
+        z = cpu.model.enc(torch.as_tensor(rng.normal(size=(B, obs.shape[-1])), dtype=torch.float32))
+    host = dict(z=z, t0=torch.tensor([True, False] * (B // 2)),
+                prev_mean=torch.as_tensor(rng.uniform(-1, 1, (B, H, A)), dtype=torch.float32))
+    draws = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in dict(
+        pi_eps=rng.normal(size=(H, B, P, A)), noise=rng.normal(size=(trainer.iterations, B, H, N - P, A)),
+        gumbel=-np.log(-np.log(rng.uniform(1e-30, 1, (B, E)))), explore=rng.normal(size=(B, A))).items()}
+    outs = []  # the CPU's, the card's
+    for t in (cpu, trainer):
+        args = {k: v.to(t.device) for k, v in host.items()}
+        outs.append(t.plan(args["z"], args["t0"], args["prev_mean"], eval_mode=False,
+                           draws={k: v.to(t.device) for k, v in draws.items()}))
+    errs = [float((a - b.cpu()).abs().max()) for a, b in zip(*outs)]
+    check(max(errs) <= PLAN_TOL, f"tdmpc2 plan, card vs CPU: action and mean part by {errs}")
+    print(f"tdmpc2 plan on the card == the CPU port's from host latents and draws ({B} envs, {N} samples, "
+          f"{trainer.iterations} iterations): action within {errs[0]:.3g}, mean within {errs[1]:.3g} "
+          f"(bound {PLAN_TOL}) {card}")
+
+
+def tdmpc2_phase(torch, dev, make, card):
+    """Phase 31: TD-MPC2 on PushCube state through
+    ``TDMPC2Trainer.train_step`` at the CLI's defaults: the planner's ms
+    per control step against its float32 bound, update ms, env-steps/s, one
+    profiled learning step (0 syncs, 0 host-to-device copies), actions in
+    [-1, 1], and one plan held to the CPU port's."""
+    from maniskill_tpu_torch.parallel.tdmpc2 import TDMPC2Config, TDMPC2Trainer
+    from maniskill_tpu_torch.utils.gym_utils import find_max_episode_steps_value
+    from maniskill_tpu_torch.utils.timing import cuda_ms, profile_calls
+
+    uid, n_envs, warmup, learn_steps = TDMPC2_CELL
+    name = f"tdmpc2 state {uid} x{n_envs}"
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="state", device=dev)
+    obs, _ = env.reset(seed=1)
+    ep_len = find_max_episode_steps_value(env)
+    config = TDMPC2Config(buffer_steps=(max(1000, ep_len) // ep_len) * ep_len)  # the CLI's ring
+    trainer = TDMPC2Trainer(env, config, obs.shape[-1], seed=1)
+    check(warmup * config.rollout_steps >= ep_len, f"{name}: the warm-up does not fill an episode")
+    elapsed = torch.zeros(n_envs, dtype=torch.int32, device=dev)
+    before = [p.detach().clone() for p in trainer.pi.parameters()]
+    torch.cuda.synchronize()
+    print(f"{name}: env and trainer built in {time.perf_counter() - t0:.2f} s {card}")
+    step_s = []
+    for it in range(warmup + learn_steps):
+        t0 = time.perf_counter()
+        obs, elapsed, metrics = trainer.train_step(obs, elapsed, learn=it >= warmup)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    m = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in m.values()), f"{name}: metrics {m}")
+    check(all(bool(torch.isfinite(p).all()) for p in trainer.model.parameters()), f"{name}: non-finite params")
+    check(any(not bool(torch.equal(a, b)) for a, b in zip(before, trainer.pi.parameters())),
+          f"{name}: the policy did not change")
+    filled = trainer.filled
+    check(float(trainer.buf_act[:filled].abs().max()) <= 1.0, f"{name}: a planned action outside [-1, 1]")
+    z, t0_mask = trainer.model.enc(obs).detach(), elapsed == 0
+    plan_ms = cuda_ms(lambda: trainer.plan(z, t0_mask, trainer.prev_mean), 5)
+    bound_ms = planner_flops(config, n_envs, trainer.act_dim, trainer.iterations) / PEAK_FP32_FLOPS * 1e3
+    _, plan_prof = profile_calls(lambda: trainer.plan(z, t0_mask, trainer.prev_mean), 1)
+    update_ms = cuda_ms(lambda: trainer.update_once(), config.num_updates)
+    learn_s = sum(step_s[warmup:])
+    print(f"{name}: consistency {m['consistency_loss']:.4f} reward {m['reward_loss']:.4f} value "
+          f"{m['value_loss']:.4f} pi {m['pi_loss']:.4f} q_scale {m['q_scale']:.4f} {card}")
+    print(f"{name} rate: {n_envs * config.rollout_steps * learn_steps / learn_s:.1f} env-steps/s over "
+          f"{learn_steps} learning train steps ({learn_s / learn_steps * 1e3:.1f} ms each; warm-up steps "
+          f"{float(np.median(step_s[1:warmup])) * 1e3:.1f} ms); planner {plan_ms:.2f} ms per control step "
+          f"({n_envs} envs x {config.num_samples} samples x {trainer.iterations} iterations, horizon "
+          f"{config.horizon}) against a float32 bound of {bound_ms:.2f} ms (operations, "
+          f"{bound_ms / plan_ms:.3f} of it), {plan_prof['launches']:.0f} launches, device kernels "
+          f"{plan_prof['device_kernel_ms']:.3f} ms of {plan_prof['wall_ms']:.3f} ms (idle "
+          f"{plan_prof['device_idle_share']:.3f}); update_once {update_ms:.2f} ms (batch {config.batch_size}) {card}")
+    out = []
+    _, prof = profile_calls(lambda: out.append(trainer.train_step(obs, elapsed, learn=True)), 1)
+    print(f"{name} profile of one learning train step ({config.rollout_steps} planned control steps, "
+          f"{config.num_updates} updates): {prof['launches']:.0f} launches, {prof['syncs']:.0f} stream/event "
+          f"syncs, {prof['h2d_copies']:.0f} host-to-device copies, device kernels {prof['device_kernel_ms']:.3f} ms "
+          f"of {prof['wall_ms']:.3f} ms (idle {prof['device_idle_share']:.3f}) {card}")
+    top = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["top_kernels_ms"].items())[:5])
+    print(f"{name} top kernels (ms per train step): {top} {card}")
+    check(prof["syncs"] == 0, f"{name}: the train step syncs with the device")
+    check(prof["h2d_copies"] == 0, f"{name}: the train step copies host to device")
+    tdmpc2_plan_parity(torch, dev, make, card, trainer)
+
+
 def main(device: str = "cuda"):
     try:
         import torch
@@ -1849,6 +2174,11 @@ def main(device: str = "cuda"):
     cabinet_state_phase(torch, dev, make, card)
     max_err = max(max_err, cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
+
+    # ---- phases 29-31: visual PPO rgbd and the off-policy trainers --------------
+    max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    sac_phase(torch, dev, make, card)
+    tdmpc2_phase(torch, dev, make, card)
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

@@ -3,12 +3,16 @@ maniskill_tpu/examples/baselines/ppo_rgb.py).
 
 The same flow as the state PPO CLI with a visual obs mode: the camera
 renders through the CUDA rasterizer inside the rollout and the NatureCNN
-policy (bfloat16 convolutions) consumes the frames on the card.
+policy (bfloat16 convolutions) consumes the frames on the card; with
+``--obs-mode rgbd`` (or ``rgb+depth``) a second tower reads the camera's
+int16 depth.
 ``--evaluate CKPT`` only evaluates a checkpoint (for example the JAX
 package's ``examples_checkpoints/ppo_pushcube_rgb.pkl``).
 
 Usage:
     python -m maniskill_tpu_torch.examples.baselines.ppo_rgb --env-id PushCube-v1 \\
+        --num-envs 512 --rollout-steps 8 --total-steps 12000000
+    python -m maniskill_tpu_torch.examples.baselines.ppo_rgb --env-id PushCube-v1 --obs-mode rgbd \\
         --num-envs 512 --rollout-steps 8 --total-steps 12000000
     python -m maniskill_tpu_torch.examples.baselines.ppo_rgb --env-id PushCube-v1 \\
         --num-envs 512 --evaluate examples_checkpoints/ppo_pushcube_rgb.pkl
@@ -24,7 +28,7 @@ import time
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--env-id", default="PickCube-v1")
-    p.add_argument("--obs-mode", default="rgb", help="rgb (rgbd and depth are not ported)")
+    p.add_argument("--obs-mode", default="rgb", help="rgb | rgbd | rgb+depth")
     p.add_argument("--num-envs", type=int, default=256)
     p.add_argument("--rollout-steps", type=int, default=8)
     p.add_argument("--total-steps", type=int, default=10_000_000)

@@ -80,46 +80,64 @@ class ActorCritic(nn.Module):
 
 
 class NatureCNN(nn.Module):
-    """NatureCNN over the rgb frames (three VALID convolutions and a dense
-    layer, all in bfloat16, the frames taken NHWC and the feature map
-    flattened in NHWC order as the reference's weights expect) beside a
-    float32 dense layer over the state vector."""
+    """NatureCNN towers over the image obs (three VALID convolutions and a
+    dense layer each, all in bfloat16, the frames taken NHWC and the feature
+    map flattened in NHWC order as the reference's weights expect) beside a
+    float32 dense layer over the state vector. A tower is built for each of
+    ``rgb`` and ``rgbd`` (scaled by 1/255) and ``depth`` (int16 mm scaled to
+    metres) whose shape is given; the features are concatenated in the
+    reference's order: rgb, rgbd, depth, state."""
 
-    def __init__(self, rgb_shape, state_dim: int, feature_size: int = 256, seed: int = 0):
+    IMAGE_KEYS = ("rgb", "rgbd", "depth")
+    CONVS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))  # (channels, kernel, stride)
+
+    def __init__(self, rgb_shape=None, state_dim: Optional[int] = None, feature_size: int = 256, seed: int = 0,
+                 depth_shape=None, rgbd_shape=None):
         super().__init__()
-        h, w, c = rgb_shape
-        self.rgb_conv8 = nn.Conv2d(c, 32, 8, stride=4)
-        self.rgb_conv4 = nn.Conv2d(32, 64, 4, stride=2)
-        self.rgb_conv3 = nn.Conv2d(64, 64, 3, stride=1)
-        for k, s in ((8, 4), (4, 2), (3, 1)):
-            h, w = (h - k) // s + 1, (w - k) // s + 1
-        self.rgb_fc = nn.Linear(64 * h * w, feature_size)
-        self.state_fc = nn.Linear(state_dim, 256)
-        self.out_features = feature_size + 256
+        shapes = dict(rgb=rgb_shape, rgbd=rgbd_shape, depth=depth_shape)
+        self.image_keys = tuple(k for k in self.IMAGE_KEYS if shapes[k] is not None)
         g = torch.Generator().manual_seed(seed)
-        for conv in (self.rgb_conv8, self.rgb_conv4, self.rgb_conv3):
-            _flax_conv_init(conv, g)
-        for layer in (self.rgb_fc, self.state_fc):
-            _flax_dense_init(layer, g)
+        for key in self.image_keys:
+            h, w, c = shapes[key]
+            for ch, k, s in self.CONVS:
+                conv = nn.Conv2d(c, ch, k, stride=s)
+                _flax_conv_init(conv, g)
+                self.add_module(f"{key}_conv{k}", conv)
+                h, w, c = (h - k) // s + 1, (w - k) // s + 1, ch
+            fc = nn.Linear(c * h * w, feature_size)
+            _flax_dense_init(fc, g)
+            self.add_module(f"{key}_fc", fc)
+        self.out_features = feature_size * len(self.image_keys)
+        if state_dim is not None:
+            self.state_fc = nn.Linear(state_dim, 256)
+            _flax_dense_init(self.state_fc, g)
+            self.out_features += 256
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         # flax's bf16 layers: inputs and parameters cast to bf16, the product
         # rounded to bf16, then the bias added in bf16
         bf16 = torch.bfloat16
-        x = (obs["rgb"].to(bf16) / 255.0).permute(0, 3, 1, 2)
-        for conv in (self.rgb_conv8, self.rgb_conv4, self.rgb_conv3):
-            x = F.relu(F.conv2d(x, conv.weight.to(bf16), stride=conv.stride) + conv.bias.to(bf16)[:, None, None])
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        x = F.relu(F.linear(x, self.rgb_fc.weight.to(bf16)) + self.rgb_fc.bias.to(bf16))
-        return torch.cat([x.to(torch.float32), self.state_fc(obs["state"])], -1)
+        feats = []
+        for key in self.image_keys:
+            x = (obs[key].to(bf16) / (1000.0 if key == "depth" else 255.0)).permute(0, 3, 1, 2)
+            for _, k, _ in self.CONVS:
+                conv = getattr(self, f"{key}_conv{k}")
+                x = F.relu(F.conv2d(x, conv.weight.to(bf16), stride=conv.stride) + conv.bias.to(bf16)[:, None, None])
+            x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+            fc = getattr(self, f"{key}_fc")
+            feats.append(F.relu(F.linear(x, fc.weight.to(bf16)) + fc.bias.to(bf16)).to(torch.float32))
+        if hasattr(self, "state_fc"):
+            feats.append(self.state_fc(obs["state"]))
+        return torch.cat(feats, -1)
 
 
 class VisualActorCritic(nn.Module):
     """A shared NatureCNN encoder, separate ReLU actor and critic heads."""
 
-    def __init__(self, rgb_shape, state_dim: int, action_dim: int, hidden: int = 512, seed: int = 0):
+    def __init__(self, rgb_shape, state_dim: Optional[int], action_dim: int, hidden: int = 512, seed: int = 0,
+                 depth_shape=None, rgbd_shape=None):
         super().__init__()
-        self.feature_net = NatureCNN(rgb_shape, state_dim, seed=seed)
+        self.feature_net = NatureCNN(rgb_shape, state_dim, seed=seed, depth_shape=depth_shape, rgbd_shape=rgbd_shape)
         feat = self.feature_net.out_features
         self.actor_fc = nn.Linear(feat, hidden)
         self.actor_out = nn.Linear(hidden, action_dim)
@@ -130,6 +148,14 @@ class VisualActorCritic(nn.Module):
         for layer in (self.actor_fc, self.critic_fc, self.critic_out):
             _flax_dense_init(layer, g)
         _flax_dense_init(self.actor_out, g, scale=0.01 * math.sqrt(2))
+
+    @classmethod
+    def for_obs(cls, obs: Dict[str, torch.Tensor], action_dim: int, seed: int = 0) -> "VisualActorCritic":
+        """Sized from a transformed obs dict (its image keys and state)."""
+        shapes = {k: tuple(obs[k].shape[1:]) for k in NatureCNN.IMAGE_KEYS if k in obs}
+        state_dim = obs["state"].shape[-1] if "state" in obs else None
+        return cls(shapes.get("rgb"), state_dim, action_dim, seed=seed, depth_shape=shapes.get("depth"),
+                   rgbd_shape=shapes.get("rgbd"))
 
     def forward(self, obs: Dict[str, torch.Tensor]):
         x = self.feature_net(obs)
@@ -173,14 +199,20 @@ def make_env_step_fns(env, obs_tf=lambda o: o):
 
 def make_obs_transform(base):
     """A raw visual obs dict -> {"rgb": (B, H, W, 3 x cameras) uint8,
-    "state": (B, D) float32} (the FlattenRGBDObservationWrapper layout); the
-    identity for state obs."""
+    "depth": (B, H, W, cameras) int16 mm, "state": (B, D) float32} (the
+    FlattenRGBDObservationWrapper layout: every camera's frames, cameras
+    sorted by name, concatenated on the channels; a key only where the obs
+    mode renders it); the identity for state obs."""
     if base.obs_mode in ("state", "none"):
         return lambda obs: obs
 
     def obs_tf(obs):
         sensors = obs.get("sensor_data", {})
-        out = {"rgb": torch.cat([sensors[cam]["rgb"] for cam in sorted(sensors)], -1)}
+        out = {}
+        for key in ("rgb", "depth"):
+            frames = [sensors[cam][key] for cam in sorted(sensors) if key in sensors[cam]]
+            if frames:
+                out[key] = torch.cat(frames, -1)
         out["state"] = common.flatten_state_dict(dict(agent=obs.get("agent", {}), extra=obs.get("extra", {})))
         return out
 
@@ -192,7 +224,7 @@ def build_model(base, obs, seed: int = 0) -> nn.Module:
     the env's device."""
     act_dim = int(np.prod(base.single_action_space.shape))
     if isinstance(obs, dict):
-        model = VisualActorCritic(tuple(obs["rgb"].shape[1:]), obs["state"].shape[-1], act_dim, seed=seed)
+        model = VisualActorCritic.for_obs(obs, act_dim, seed=seed)
     else:
         model = ActorCritic(obs.shape[-1], act_dim, seed=seed)
     return model.to(base.device)
@@ -396,35 +428,47 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
-    """A flax parameter tree ({"params": {...}} of numpy arrays) of the JAX
-    package's ActorCritic or VisualActorCritic -> the state dict of the
-    port's module: dense kernels (in, out) -> weights (out, in), conv kernels
-    HWIO -> OIHW."""
+# kernel axes between the packages: dense (in, out) <-> (out, in), conv HWIO
+# <-> OIHW; stacked dense kernels (n, in, out) keep flax's layout
+_TO_TORCH_AXES = {2: (1, 0), 4: (3, 2, 0, 1)}
+_TO_FLAX_AXES = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
+def params_from_flax(tree, names: Optional[Dict[str, str]] = None) -> "OrderedDict[str, torch.Tensor]":
+    """A flax parameter tree ({"params": {...}} of numpy arrays) -> the state
+    dict of the port's module: dense kernels (in, out) -> weights (out, in),
+    conv kernels HWIO -> OIHW, stacked kernels (n, in, out) as they are,
+    LayerNorm scales -> weights. ``names`` maps a flax module path ("/"
+    joined) to the port's module name (default: PPO's ActorCritic; other
+    paths keep their names, "/" -> ".")."""
+    names = _STATE_NAMES if names is None else names
     out = OrderedDict()
     for path, value in _flat(tree["params"]):
         value = np.array(value, np.float32)
         *mods, leaf = path
-        name = ".".join(_STATE_NAMES.get(m, m) for m in mods)
-        if leaf == "kernel":
-            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
-            leaf = "weight"
+        name = names.get("/".join(mods), ".".join(mods))
+        if leaf == "kernel" and value.ndim in _TO_TORCH_AXES:
+            value = value.transpose(_TO_TORCH_AXES[value.ndim])
+        leaf = "weight" if leaf in ("kernel", "scale") else leaf
         out[f"{name}.{leaf}" if name else leaf] = torch.from_numpy(np.ascontiguousarray(value))
     return out
 
 
-def params_to_flax(state_dict) -> dict:
+def params_to_flax(state_dict, names: Optional[Dict[str, str]] = None) -> dict:
     """The inverse of ``params_from_flax``: a port state dict -> a flax
     parameter tree of float32 numpy arrays."""
-    to_flax = {v: k for k, v in _STATE_NAMES.items()}
+    names = _STATE_NAMES if names is None else names
+    to_flax = {v: k for k, v in names.items()}
     params: dict = {}
     for key, value in state_dict.items():
         value = value.detach().cpu().numpy().astype(np.float32)
         *mods, leaf = key.split(".")
         name = ".".join(mods)
-        mods = [to_flax[name]] if name in to_flax else mods
-        if leaf == "weight":
-            value = value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+        mods = to_flax[name].split("/") if name in to_flax else mods
+        if leaf == "weight" and mods[-1].startswith("LayerNorm"):
+            leaf = "scale"
+        elif leaf == "weight":
+            value = value.transpose(_TO_FLAX_AXES[value.ndim]) if value.ndim in _TO_FLAX_AXES else value
             leaf = "kernel"
         node = params
         for m in mods:

@@ -2,6 +2,7 @@
 ``scripts/profile_torch_step.py``."""
 from __future__ import annotations
 
+import collections
 import time
 
 import torch
@@ -70,8 +71,11 @@ def profile_calls(fn, n: int, cpu_ops: bool = False):
         wall_ms=wall_ms / n,
         device_idle_share=1.0 - device_ms / wall_ms if wall_ms > 0 else None,
     )
-    summary["top_kernels_ms"] = {e.key[:80]: device_us(e) / 1e3 / n
-                                 for e in sorted(kernels, key=device_us, reverse=True)[:15]}
+    # kernels whose names share their first 80 characters add up under one key
+    top = collections.Counter()
+    for e in kernels:
+        top[e.key[:80]] += device_us(e) / 1e3 / n
+    summary["top_kernels_ms"] = dict(top.most_common(15))
     return prof, summary
 
 

@@ -34,6 +34,13 @@ files import them), and a check of the f32 solver switch they rely on.
   with the JAX package's own g++ command into a temporary file that is then
   renamed over it, so no worker's build writes it in place during the tests.
 
+- ``closures(fn)`` reaches the inner functions of a JAX trainer (the
+  closures of its ``train_step`` or ``act``); ``close_rel`` holds an array
+  to a reference within a tolerance relative to the reference's largest
+  magnitude; ``assert_adam_params_close`` holds a port's parameter tree to
+  the JAX package's after Adam updates, ``assert_trees_equal`` a carried
+  tree to its round trip (the trainer parity files).
+
 JAX is imported where it is used, so that a file that needs only the
 thread fixture needs no JAX.
 """
@@ -138,6 +145,57 @@ def numpy_fields(obj):
         else:
             out[f.name] = np.asarray(v)
     return out
+
+
+def closures(fn):
+    """The free variables of ``fn`` by name (a JAX trainer's inner
+    functions)."""
+    return dict(zip(fn.__code__.co_freevars, (c.cell_contents for c in fn.__closure__)))
+
+
+def close_rel(a, b, tol, what=""):
+    """|b - a| <= tol * max(1, max|a|), with ``a`` the reference."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    np.testing.assert_allclose(b, a, rtol=0, atol=tol * max(1.0, float(np.abs(a).max())), err_msg=what)
+
+
+def tree_leaves(jtree, ttree):
+    """(path, JAX leaf, port leaf) as float64 arrays over the JAX tree's
+    leaves, the port's tree indexed by the same keys."""
+    import jax
+
+    for path, jv in jax.tree_util.tree_leaves_with_path(jtree):
+        tv = ttree
+        for p in path:
+            tv = tv[p.key]
+        yield jax.tree_util.keystr(path), np.asarray(jv, np.float64), np.asarray(tv, np.float64)
+
+
+def assert_adam_params_close(jtree, ttree, lr, n_updates, what, tol=1e-5, share=0.999):
+    """Params after ``n_updates`` Adam steps: within 2 x lr per update of
+    the reference everywhere (Adam's step is about lr x sign(g), so an entry
+    whose gradient the packages round to opposite signs parts by up to
+    2 x lr) and within ``tol`` on at least ``share`` of the entries."""
+    diffs = []
+    for path, jv, tv in tree_leaves(jtree, ttree):
+        d = np.abs(tv - jv)
+        assert d.max() <= 2 * lr * n_updates, (what, path, d.max())
+        diffs.append(d.ravel())
+    got = (np.concatenate(diffs) <= tol).mean()
+    assert got >= share, (what, got)
+
+
+def assert_trees_equal(a, b):
+    """Two flax parameter trees with the same paths, shapes and values."""
+    import jax
+
+    flat_a = jax.tree_util.tree_leaves_with_path(a)
+    flat_b = jax.tree_util.tree_leaves_with_path(b)
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (path, x), (_, y) in zip(flat_a, flat_b):
+        assert x.dtype == y.dtype and x.shape == y.shape, path
+        np.testing.assert_array_equal(x, y, err_msg=jax.tree_util.keystr(path))
 
 
 def tree(x, fn):
