@@ -176,6 +176,34 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      ms, env-steps/s; one profiled learning train step with 0 syncs and 0
      copies; one plan at 4 envs on the card and on the CPU from host
      latents and draws, action and mean within 1e-5.
+ 32. Recording: the planner CLI (examples/motionplanning/run.py) on
+     PickCube-v1 at 1024 envs, one batch, without and with --save-traj:
+     both wall times, the flush's device-to-host MB and seconds, the write
+     seconds and the file's size; the port's h5 reader finds 1024 traj_
+     groups, every env_states leaf of T+1 rows with row 0 equal to the
+     env's reset state, the JSON's success flags equal to the planner's;
+     one profiled recorded step with 0 stream/event syncs and 0
+     host-to-device copies (and its launches beside the bare step's).
+ 33. Replay (trajectory/replay_trajectory.py) of phase 32's file to rgb at
+     1024 envs with --save-traj: kernel launches == resets (make's and the
+     replay's) + steps, every
+     replayed episode's camera rgb uint8 (T+1, 128, 128, 3), the file's last
+     frame equal to the env's, the last frame of 16 envs re-rendered through
+     the plain version (seg agreement >= 0.999, rgb equal), replayed success
+     agreeing with the recording in >= 0.90 of the episodes, rgb env-steps/s
+     and the kernel's ms per frame against its bound; then 4 episodes by env
+     states (every restored state within 1e-5 of the recording) and 4
+     converted to pd_joint_delta_pos with --save-traj, their success: these
+     two run in spawned processes from the moment phase 32's file exists,
+     beside the rest of phases 32-34 until RLPD; the kernel's times are
+     taken after they end.
+ 34. Learning from the files: bc.py on phase 32's file at its defaults
+     (batch 1024, hidden 256, lr 3e-4), 5 epochs, the MSE falling, epochs/s
+     and the eval success on 16 envs; rlpd.py (256 envs, batch 512, utd 4)
+     on phase 33's converted file, 1 warm-up and 3 learning train steps,
+     env-steps/s, and one profiled learning train step with 0 stream/event
+     syncs and 0 host-to-device copies. The files live in a temporary
+     directory that is removed at the end.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -195,6 +223,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -354,6 +383,20 @@ TDMPC2_CELL = ("PushCube-v1", 32, 13, 3)
 SAC_PARITY_ENVS, TDMPC2_PARITY_ENVS = 8, 4
 UPDATE_LOSS_TOL, UPDATE_PARAM_TOL, UPDATE_PARAM_SHARE = 1e-4, 1e-5, 0.999
 PLAN_TOL = 1e-5
+# phases 32-34: the planner CLI records PickCube @1024 (one batch); the file
+# replayed to rgb at 1024 envs, success agreeing with the recording in at
+# least this share of episodes (open loop: the scatter-adds need not be
+# bitwise deterministic); 4 episodes replayed by env states (each restored
+# state within 1e-5) and converted to pd_joint_delta_pos; BC on the recorded
+# file; RLPD on the converted one: (env, warm-up, learning train steps)
+RECORD_CELL = ("PickCube-v1", 1024)
+RECORD_ROW0_ENVS = 1024
+REPLAY_AGREE_MIN = 0.90
+REPLAY_EPISODES = 4
+STATE_RESTORE_TOL = 1e-5
+BC_EPOCHS = 5
+RLPD_CELL = ("PickCube-v1", 1, 3)
+SHARED = " (sharing the card with phase 33's two per-episode replays)"
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (an FMA counts two)
 STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
 RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
@@ -1874,6 +1917,258 @@ def tdmpc2_phase(torch, dev, make, card):
     tdmpc2_plan_parity(torch, dev, make, card, trainer)
 
 
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _h5_leaves(group, prefix=""):
+    from maniskill_tpu_torch.utils import h5
+
+    for k, v in group.items():
+        if isinstance(v, h5.Group):
+            yield from _h5_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def record_phase(torch, dev, make, card, tmp, pool):
+    """Phase 32: the planner CLI records PickCube @1024 (``run.py
+    --save-traj``); once the file exists phase 33's per-episode replays
+    start in ``pool``, and the file is read back through the port's h5
+    reader. Returns (the .h5 path, the replays' futures, the converted
+    file's path)."""
+    import os
+
+    from maniskill_tpu_torch.examples.motionplanning import run
+    from maniskill_tpu_torch.utils import h5
+    from maniskill_tpu_torch.utils.timing import profile_calls
+    from maniskill_tpu_torch.wrappers.record import RecordEpisode
+
+    uid, n_envs = RECORD_CELL
+    name = f"record {uid} x{n_envs}"
+    argv = ["--env-id", uid, "--num-envs", str(n_envs), "--seed", "0"]
+    plain, _ = _quiet(run.main, argv)
+    rec, _ = _quiet(run.main, argv + ["--save-traj", "--output-dir", tmp])
+    path = os.path.join(tmp, f"mp_{uid}.h5")
+    size_mb = os.path.getsize(path) / 1e6
+    flush = rec["flush"]
+    success = rec["success"][0].cpu().numpy()
+    print(f"{name}: planner CLI {plain['wall_s'][0]:.2f} s without recording, {rec['wall_s'][0]:.2f} s with "
+          f"(success {success.mean():.6f} and {plain['success'][0].float().mean().item():.6f}); the flush: "
+          f"{flush['d2h_bytes'] / 1e6:.2f} MB device to host in {flush['d2h_seconds']:.3f} s, written in "
+          f"{flush['write_seconds']:.2f} s, {flush['flushes']} flush(es); the file {size_mb:.2f} MB {card}")
+    futures, converted = episode_replays_start(pool, path, tmp)
+    with open(path.replace(".h5", ".json")) as f:
+        meta = json.load(f)
+    episodes = meta["episodes"]
+    check(len(episodes) == n_envs, f"{name}: {len(episodes)} episodes in the JSON")
+    check([e["success"] for e in episodes] == success.tolist(), f"{name}: the JSON's success flags differ from "
+                                                                "the planner's")
+    env = make(uid, num_envs=n_envs, obs_mode="state", control_mode="pd_joint_pos", device=dev)
+    env.reset(seed=0)
+    reset_state = {k: v.cpu().numpy() for k, v in _flat_state(env.unwrapped.get_state_dict())}
+    t0 = time.perf_counter()
+    with h5.File(path) as f:
+        keys = [k for k in f.keys() if k.startswith("traj_")]
+        check(len(keys) == n_envs, f"{name}: the port's reader finds {len(keys)} traj_ groups")
+        for i, e in enumerate(episodes):
+            traj = f[f"traj_{e['episode_id']}"]
+            T = e["elapsed_steps"]
+            check(traj["actions"].shape[0] == T, f"{name}: traj_{i} holds {traj['actions'].shape[0]} actions")
+            for key, ds in _h5_leaves(traj["env_states"]):
+                check(ds.shape[0] == T + 1, f"{name}: traj_{i} env_states/{key} has {ds.shape[0]} rows, not {T + 1}")
+                if i < RECORD_ROW0_ENVS:
+                    check(np.array_equal(ds[0], reset_state[key][i]),
+                          f"{name}: traj_{i} env_states/{key} row 0 is not the env's reset state")
+    print(f"{name}: the port's reader finds {len(keys)} traj_ groups, each env_states of T+1 rows, row 0 equal to "
+          f"the env's reset state (first {RECORD_ROW0_ENVS} envs), the JSON's success flags equal the planner's; "
+          f"read in {time.perf_counter() - t0:.2f} s {card}")
+    rec_env = RecordEpisode(env, os.path.join(tmp, "profile"), save_video=False, trajectory_name="p")
+    rec_env.reset(seed=0)
+    action = torch.zeros(n_envs, 8, device=dev)
+    rec_env.step(action)
+    _, prof = profile_calls(lambda: rec_env.step(action), 1)
+    _, bare = profile_calls(lambda: env.step(action), 1)
+    print(f"{name}: one recorded step {prof['launches']:.0f} launches ({bare['launches']:.0f} without the "
+          f"wrapper), {prof['syncs']:.0f} stream/event syncs, {prof['h2d_copies']:.0f} host-to-device copies, "
+          f"{prof['wall_ms']:.1f} ms ({bare['wall_ms']:.1f} ms without) {card}{SHARED}")
+    check(prof["syncs"] == 0, f"{name}: a recorded step syncs with the device")
+    check(prof["h2d_copies"] == 0, f"{name}: a recorded step copies host to device")
+    return path, futures, converted
+
+
+def _flat_state(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_state(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, path, tmp):
+    """Phase 33: the recorded file replayed to rgb through the kernel at
+    1024 envs (beside the two per-episode replays). Returns (the kernel's max
+    error, the last frame's kernel inputs, the launches)."""
+    import os
+
+    from maniskill_tpu_torch.trajectory import replay_trajectory as replay
+    from maniskill_tpu_torch.utils import h5
+
+    kernel = tr.KERNEL
+    uid, n_envs = RECORD_CELL
+    name = f"replay {uid} rgb x{n_envs}"
+    with open(path.replace(".h5", ".json")) as f:
+        recorded = [e["success"] for e in json.load(f)["episodes"]]
+    rgb_dir = os.path.join(tmp, "rgb")
+    kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = _quiet(replay.main, ["--traj-path", path, "--obs-mode", "rgb", "--num-envs", str(n_envs),
+                                  "--save-traj", "--output-dir", rgb_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    env = out["env"]
+    base = env.unwrapped
+    T = int(base.elapsed_steps.max())
+    flush = env.flush_stats
+    # make's first reset, the replay's reset, then the steps
+    check(launches == 2 + T, f"{name}: kernel launches {launches} != resets + steps {2 + T}")
+    agree = float(np.mean(np.asarray(out["success"]) == np.asarray(recorded)))
+    check(agree >= REPLAY_AGREE_MIN, f"{name}: replayed success agrees with the recording in {agree:.4f} "
+                                     f"of episodes (< {REPLAY_AGREE_MIN})")
+    rgb_path = os.path.join(rgb_dir, os.path.basename(path).replace(".h5", ".replay.h5"))
+    cams = list(base._sensors)
+    with h5.File(rgb_path) as f:
+        keys = [k for k in f.keys() if k.startswith("traj_")]
+        check(len(keys) == n_envs, f"{name}: {len(keys)} replayed episodes in the file")
+        for k in keys:
+            for cam in cams:
+                ds = f[f"{k}/obs/sensor_data/{cam}/rgb"]
+                n = f[f"{k}/actions"].shape[0]
+                check(ds.shape == (n + 1, 128, 128, 3) and ds.dtype == np.uint8,
+                      f"{name}: {k} {cam} rgb is {ds.shape} {ds.dtype}")
+        frame = f[f"{keys[0]}/obs/sensor_data/{cams[0]}/rgb"][()][-1]
+    size_gb = os.path.getsize(rgb_path) / 1e9
+    os.remove(rgb_path)
+    obs = base.get_obs()
+    rgb = obs["sensor_data"][cams[0]]["rgb"]
+    check(np.array_equal(rgb[0].cpu().numpy(), frame), f"{name}: the file's last frame of env 0 is not the env's")
+    inputs, err, seg_agree = rerender_check(base, cams[0], 16, tr, tiled_inputs, geom_poses, rgb, name)
+    print(f"{name}: {n_envs} episodes of {T} steps replayed open loop in {wall:.2f} s "
+          f"({n_envs * T / wall:.1f} rgb env-steps/s, recording and the flush included: "
+          f"{flush['d2h_bytes'] / 1e9:.3f} GB device to host in {flush['d2h_seconds']:.2f} s, written in "
+          f"{flush['write_seconds']:.2f} s, the file {size_gb:.3f} GB); success {sum(out['success'])}/{n_envs}, "
+          f"agreeing with the recording in {agree:.6f} of episodes (bound {REPLAY_AGREE_MIN}); kernel launches "
+          f"{launches}; every episode's {', '.join(cams)} rgb uint8 (T+1, 128, 128, 3); the last frame of 16 envs "
+          f"re-rendered through the plain version: seg agreement {seg_agree:.6f}, rgb equal {card}{SHARED}")
+    return err, inputs, launches
+
+
+def replay_kernel_times(tr, paths, inputs, launches, card):
+    """The kernel's numbers on phase 33's last frame, taken alone on the
+    card after the per-episode replays end."""
+    n_envs = RECORD_CELL[1]
+    path_numbers = dict(launches=launches, **kernel_times(tr.KERNEL, tr, inputs, 128, 128))
+    paths[f"replay_pickcube_rgb_{n_envs}"] = path_numbers
+    print(f"raster kernel (replay pickcube rgb, {n_envs}x128x128): {path_numbers['ms']:.4f} ms/frame vs plain "
+          f"{path_numbers['plain_ms']:.3f} ms, bound {path_numbers['bound_ms']:.4f} ms "
+          f"({path_numbers['bound_by']}) {card}")
+
+
+def episode_replay_worker(argv):
+    """One per-episode replay (``replay_trajectory.main(argv)``) in a process
+    of its own: its result without the env, and its seconds."""
+    from maniskill_tpu_torch.trajectory import replay_trajectory as replay
+
+    t0 = time.perf_counter()
+    out, _ = _quiet(replay.main, argv)
+    out.pop("env")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def episode_replays_start(pool, path, tmp):
+    """Phase 33's per-episode paths, started in two processes: 4 episodes
+    by env states, and 4 converted to pd_joint_delta_pos and recorded.
+    Returns (futures, the converted file's path)."""
+    import os
+
+    n_ep, conv_dir = str(REPLAY_EPISODES), os.path.join(tmp, "delta")
+    futures = dict(
+        states=pool.submit(episode_replay_worker, ["--traj-path", path, "--use-env-states", "--num-episodes", n_ep]),
+        converted=pool.submit(episode_replay_worker, ["--traj-path", path, "--control-mode", "pd_joint_delta_pos",
+                                                      "--save-traj", "--num-episodes", n_ep, "--output-dir",
+                                                      conv_dir]))
+    return futures, os.path.join(conv_dir, os.path.basename(path).replace(".h5", ".replay.h5"))
+
+
+def episode_replays_finish(futures, path, card):
+    """Phase 33's per-episode results: every restored state within
+    STATE_RESTORE_TOL of the recording; each path's success."""
+    with open(path.replace(".h5", ".json")) as f:
+        recorded = [e["success"] for e in json.load(f)["episodes"]][:REPLAY_EPISODES]
+    states, conv = futures["states"].result(), futures["converted"].result()
+    worst = max(states["state_err"])
+    check(worst <= STATE_RESTORE_TOL, f"replay by env states: a restored state parts from the recording by {worst}")
+    note = f"{card} (one of 2 replay processes sharing the card with phases 32-34)"
+    print(f"replay by env states, {REPLAY_EPISODES} episodes: every restored state within {worst:.3g} of the "
+          f"recording (bound {STATE_RESTORE_TOL}); success {states['success']} (recorded {recorded}) in "
+          f"{states['seconds']:.2f} s {note}")
+    print(f"replay converted to pd_joint_delta_pos, {REPLAY_EPISODES} episodes: success {conv['success']} "
+          f"(recorded {recorded}) in {conv['seconds']:.2f} s {note}")
+
+
+def bc_phase(torch, dev, make, card, path):
+    """Phase 34, BC: the CLI at its defaults on phase 32's file."""
+    from maniskill_tpu_torch.examples.baselines import bc
+
+    out, printed = _quiet(bc.main, ["--traj-path", path, "--epochs", str(BC_EPOCHS), "--save-path",
+                                    path.replace(".h5", ".bc.pt")])
+    mse = out["mse"]
+    check(all(np.isfinite(mse)) and mse[-1] < mse[0], f"bc: the MSE did not fall over {BC_EPOCHS} epochs: {mse}")
+    print(f"bc on the recorded file ({printed.splitlines()[0]}; batch 1024, hidden 256, lr 3e-4): MSE "
+          f"{', '.join(f'{m:.5f}' for m in mse)} over {BC_EPOCHS} epochs, {out['epochs_per_s']:.2f} epochs/s; "
+          f"eval success(any) {out['eval_success']:.4f} on 16 envs {card}{SHARED}")
+
+
+def rlpd_phase(torch, dev, make, card, converted):
+    """Phase 34, RLPD: the CLI at its defaults on phase 33's converted file,
+    then one profiled learning train step."""
+    from maniskill_tpu_torch.examples.baselines import rlpd
+    from maniskill_tpu_torch.utils.timing import profile_calls
+
+    uid, warmup, learn = RLPD_CELL
+    envs = 256
+    steps = (warmup + learn) * envs * 4
+    t0 = time.perf_counter()
+    out, printed = _quiet(rlpd.main, ["--env-id", uid, "--traj-path", converted, "--total-steps", str(steps),
+                                      "--warmup-steps", str(warmup), "--save-path",
+                                      converted.replace(".h5", ".rlpd.pkl")])
+    trainer = out["trainer"]
+    check(all(np.isfinite(v) for v in out["metrics"].values()), f"rlpd: metrics {out['metrics']}")
+    check(all(bool(torch.isfinite(p).all()) for p in trainer.actor.parameters()), "rlpd: non-finite params")
+    mode_line = next(line for line in printed.splitlines() if line.startswith("control mode"))
+    print(f"rlpd {uid} x{envs} on the converted file ({printed.splitlines()[0]}; {mode_line}): "
+          f"{warmup} warm-up and {learn} learning train steps at the CLI's defaults (batch 512, utd 4), "
+          f"{out['env_steps_per_s']:.1f} env-steps/s, q_loss {out['metrics']['q_loss']:.4f}, eval success(any) "
+          f"{out['eval_success']:.4f}, {time.perf_counter() - t0:.2f} s in all {card}")
+    obs, elapsed = out["obs"], out["elapsed"]
+    _, prof = profile_calls(lambda: trainer.train_step(obs, elapsed, learn=True), 1)
+    print(f"rlpd profile of one learning train step: {prof['launches']:.0f} launches, {prof['syncs']:.0f} "
+          f"stream/event syncs, {prof['h2d_copies']:.0f} host-to-device copies, device kernels "
+          f"{prof['device_kernel_ms']:.3f} ms of {prof['wall_ms']:.3f} ms {card}")
+    check(prof["syncs"] == 0, "rlpd: the train step syncs with the device")
+    check(prof["h2d_copies"] == 0, "rlpd: the train step copies host to device")
+
+
 def main(device: str = "cuda"):
     try:
         import torch
@@ -1891,6 +2186,11 @@ def main(device: str = "cuda"):
         from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
+
+    t_start = time.perf_counter()
+
+    def stamp(done: str):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {done} done", flush=True)
 
     # ---- phase 1: the card --------------------------------------------------
     smi = subprocess.run(
@@ -2117,10 +2417,14 @@ def main(device: str = "cuda"):
               f"{n_envs * n_steps / step_s:.1f} env-steps/s ({step_s / n_steps * 1e3:.2f} ms/step, eager) {card}")
         del env, base, data
 
+    stamp("phases 1-9")
+
     # ---- phases 10-11: PPO state, PickCube-v1 --------------------------------
     env, trainer, _, _ = ppo_phase(torch, dev, make, card, "state", PPO_STATE, None)
     evaluate_checkpoint(torch, env, trainer, STATE_CKPT, STATE_SUCCESS_MIN, card)
     del env, trainer
+
+    stamp("phases 10-11")
 
     # ---- phases 12-13: PPO rgb, PushCube-v1 ---------------------------------
     env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgb", PPO_RGB, kernel)
@@ -2147,38 +2451,78 @@ def main(device: str = "cuda"):
     evaluate_checkpoint(torch, env, trainer, RGB_CKPT, RGB_SUCCESS_MIN, card)
     del env, trainer, inputs, table, idx, counts, obs
 
+    stamp("phases 12-13")
+
     # ---- phase 14: end-effector and joint-velocity control ----------------
     ee_control_phase(torch, dev, make, card)
+
+    stamp("phase 14")
 
     # ---- phase 15: PickCube rgb+depth+segmentation vs state ----------------
     max_err = max(max_err, rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
 
+    stamp("phase 15")
+
     # ---- phases 16-17: the batched motion planner ----------------------------
     max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+
+    stamp("phases 16-17")
 
     # ---- phases 18-20: convex hulls and per-env objects ----------------------
     ycb_state_phase(torch, dev, make, card)
     max_err = max(max_err, ycb_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     clutter_phase(torch, dev, make, card)
 
+    stamp("phases 18-20")
+
     # ---- phases 21-23: the rest of the tabletop family -----------------------
     family_state_phase(torch, dev, make, card)
     max_err = max(max_err, peg_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     two_robot_phase(torch, dev, make, card)
 
+    stamp("phases 21-23")
+
     # ---- phases 24-25: the URDF loader and the locomotion family --------------
     locomotion_phase(torch, dev, make, card)
     max_err = max(max_err, anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+
+    stamp("phases 24-25")
 
     # ---- phases 26-28: the mobile-manipulation family ------------------------
     cabinet_state_phase(torch, dev, make, card)
     max_err = max(max_err, cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
 
+    stamp("phases 26-28")
+
     # ---- phases 29-31: visual PPO rgbd and the off-policy trainers --------------
     max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     sac_phase(torch, dev, make, card)
     tdmpc2_phase(torch, dev, make, card)
+
+    stamp("phases 29-31")
+
+    # ---- phases 32-34: record, replay and learn from the files ----------------
+    # the two per-episode replays (one env, ~0.3 s a step) run in processes of
+    # their own from the moment the recording exists; the planner CLI's wall
+    # times, the kernel's and RLPD's are taken with the card to themselves
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            path, futures, converted = record_phase(torch, dev, make, card, tmp, pool)
+            err, inputs, launches = replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, path,
+                                                 tmp)
+            max_err = max(max_err, err)
+            bc_phase(torch, dev, make, card, path)
+            episode_replays_finish(futures, path, card)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        replay_kernel_times(tr, paths, inputs, launches, card)
+        rlpd_phase(torch, dev, make, card, converted)
+    stamp("phases 32-34")
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

@@ -95,6 +95,7 @@ class BaseEnv:
 
         # first reset to derive the observation space
         obs, _ = self.reset(seed=2022, options=dict(reconfigure=False))
+        self._init_raw_obs = obs  # a sample the wrappers derive their spaces from
         self.single_observation_space = gym_utils.convert_observation_to_space(obs)
         self.observation_space = gym_utils.batch_space(self.single_observation_space, num_envs)
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Type
 
+from ..wrappers.base import Wrapper
+
 REGISTERED_ENVS: Dict[str, "EnvSpec"] = {}
 
 
@@ -39,23 +41,16 @@ def register_env(uid: str, max_episode_steps=None, override=False, **default_kwa
     return _register
 
 
-class TimeLimitWrapper:
+class TimeLimitWrapper(Wrapper):
     """Batched truncation from elapsed_steps; forwards everything else."""
 
     def __init__(self, env, max_episode_steps: int):
-        self.env = env
+        super().__init__(env)
         self._max_episode_steps = max_episode_steps
 
     @property
     def max_episode_steps(self):
         return self._max_episode_steps
-
-    @property
-    def unwrapped(self):
-        return self.env.unwrapped
-
-    def __getattr__(self, name):
-        return getattr(self.env, name)
 
     def reset(self, *args, **kwargs):
         return self.env.reset(*args, **kwargs)
