@@ -204,6 +204,26 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      env-steps/s, and one profiled learning train step with 0 stream/event
      syncs and 0 host-to-device copies. The files live in a temporary
      directory that is removed at the end.
+ 35. Diffusion Policy (examples/baselines/diffusion_policy.py) on phase 32's
+     recording at the CLI's defaults (unet 64 128 256, batch 512, 50
+     diffusion steps), 3 epochs: the eps-MSE falling, epochs/s, the CLI's
+     eval on 16 PickCube-v1 envs (success_once, ms per sample_chunk), and
+     one more epoch profiled: 0 stream/event syncs, 0 host-to-device copies.
+ 36. Diffusion Policy on phase 33's frames (the kernel's re-render), 1
+     epoch, then the eval with --obs-mode rgb on 16 envs through the kernel:
+     kernel launches == resets (make's and the eval's) + steps, the last
+     frame of the 16 envs re-rendered through the plain version (seg
+     agreement >= 0.999, rgb equal), the kernel's ms per frame against its
+     bound (a path of the kernels line).
+ 37. ACT (examples/baselines/act.py) on phase 32's recording at the CLI's
+     defaults, 3 epochs, the eval with whole chunks and with
+     --temporal-agg on 16 envs, one more epoch profiled (0 syncs, 0 copies).
+ 38. RFCL (examples/baselines/rfcl.py) at its defaults on PickCube-v1 x256
+     with the repo's 24 demos: 1 warm-up and 3 learning train steps,
+     env-steps/s, one learning train step profiled (0 stream/event syncs, 0
+     host-to-device copies), a curriculum reset on the card restoring its
+     demo's state within 1e-5; then 5 steps of the SB3 adapter
+     (vector/sb3.py) at 256 envs, one profiled: one device-to-host copy.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -212,7 +232,17 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
 Phases 6 and 8 time 10 steps, phase 10 runs 2 PPO iterations, phase 14
 times 10 steps per mode, phase 15 16 step pairs, phases 21 and 23 5 steps
 per task and phases 30-31 10 and 16 train steps, so that the whole run
-stays well inside its time limit.
+stays well inside its time limit. The host-bound state paths overlap,
+each launching from a process of its own while the card stays mostly idle:
+after phase 15, phase 16's planner batches (4 processes) and phases 23, 24,
+26 and 30 (one process) run beside phases 14, 18, 20 and 21; then TD-MPC2
+(phase 31, whose planner is device-bound), the rest of 16-17 (the planner
+CLI alone on the card) and the rgb phases 19, 22, 25, 27 with 28 and 29,
+whose kernel times are taken, with the card to this process alone; in
+phases 32-34 the two per-episode replays and phases 35-38 run in processes
+of their own. A rate or a device time taken beside other processes says so
+where it is printed: the card time-slices between the processes' contexts,
+so device times read there run long.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on each path, errors, times and bounds.
 """
@@ -396,7 +426,25 @@ REPLAY_EPISODES = 4
 STATE_RESTORE_TOL = 1e-5
 BC_EPOCHS = 5
 RLPD_CELL = ("PickCube-v1", 1, 3)
-SHARED = " (sharing the card with phase 33's two per-episode replays)"
+SHARED = " (sharing the card with phase 33's two per-episode replays and phases 35-38's processes)"
+# phases 14, 16, 18, 20, 21, 23, 24, 26 and 30 overlap in processes of their
+# own: each of these host-bound paths launches its kernels from its own
+# process while the card stays mostly idle
+PLANNER_SHARED = " (beside phase 16's planner processes and the process of phases 23, 24, 26 and 30)"
+SIDE_SHARED = " (in a process of its own beside phase 16's planner processes and phases 14, 18, 20 and 21)"
+PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26 and 30)"
+# phases 35-38: the last trainers, in processes of their own beside phases
+# 32-34. DP and ACT train on phase 32's recording (DP's rgb leg on phase 33's
+# re-rendered frames) at their CLIs' defaults for a few epochs and evaluate
+# IL_EVAL_ENVS envs over the CLIs' 50 steps; RFCL runs its CLI at its
+# defaults on the repo's demos: (env, envs, warm-up, learning train steps);
+# then SB3_STEPS steps of the SB3 adapter at RFCL's width
+DP_EPOCHS, DP_RGB_EPOCHS, ACT_EPOCHS, IL_EVAL_ENVS = 3, 1, 3, 16
+IL_ENV = "PickCube-v1"
+RFCL_CELL = ("PickCube-v1", 256, 1, 3)
+RFCL_DEMOS = "demos/PickCube-v1/mp_PickCube-v1.h5"
+SB3_STEPS = 5
+TRAINER_SHARED = " (in a process of its own beside phases 32-34)"
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (an FMA counts two)
 STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
 RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
@@ -727,7 +775,7 @@ def planner_state_worker(uid: str, n_envs: int, card: str) -> float:
     import maniskill_tpu_torch.envs  # noqa: F401
     from maniskill_tpu_torch import make
 
-    note = f"{card} (one of {PLANNER_WORKERS} planner processes sharing the card)"
+    note = f"{card} (one of {PLANNER_WORKERS} planner processes sharing the card){PLANNER_BESIDE}"
     return planner_run(torch, torch.device("cuda"), make, note, uid, n_envs, "state", seed=0)[1]
 
 
@@ -778,21 +826,41 @@ def planner_run(torch, dev, make, card, uid, n_envs, obs_mode, seed, kernel=None
     return env, rate
 
 
-def planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
-    """Phases 16-17. Returns the kernel's max depth error on the planner's
-    rgb path."""
+def _line_buffered():
+    """A worker process's stdout written line by line, so that lines from
+    several processes do not interleave."""
+    sys.stdout.reconfigure(line_buffering=True)
+
+
+def spawn_pool(workers: int):
+    """A pool of ``workers`` spawned processes, each writing line by line."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    t0 = time.perf_counter()
-    pool = ProcessPoolExecutor(PLANNER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"), initializer=_line_buffered)
+
+
+def planner_pool_start(card):
+    """Phase 16's batches, started in PLANNER_WORKERS processes. Returns
+    (the pool, the futures by task, the start time, the list their end
+    times go to)."""
+    pool, ends = spawn_pool(PLANNER_WORKERS), []
+    futures = {uid: pool.submit(planner_state_worker, uid, n_envs, card) for uid, n_envs in PLANNER}
+    for f in futures.values():
+        f.add_done_callback(lambda _: ends.append(time.perf_counter()))
+    return pool, futures, time.perf_counter(), ends
+
+
+def planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, started):
+    """Phases 16-17 once ``planner_pool_start``'s batches end. Returns the
+    kernel's max depth error on the planner's rgb path."""
+    pool, futures, t0, ends = started
     try:
-        futures = {uid: pool.submit(planner_state_worker, uid, n_envs, card) for uid, n_envs in PLANNER}
         rates = {uid: f.result() for uid, f in futures.items()}
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    print(f"planner state: {len(PLANNER)} tasks in {PLANNER_WORKERS} processes in "
-          f"{time.perf_counter() - t0:.2f} s {card}")
+    print(f"planner state: {len(PLANNER)} tasks in {PLANNER_WORKERS} processes in {max(ends) - t0:.2f} s "
+          f"{card}{PLANNER_BESIDE}")
     limits = {uid: (PLANNER_REFERENCE_RATE[uid] if uid in PLANNER_REFERENCE_RATE else recorded_rate(uid)) - 0.15
               for uid, _ in PLANNER}
     for uid, _ in PLANNER:
@@ -2015,7 +2083,8 @@ def _flat_state(tree, prefix=""):
 def replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, path, tmp):
     """Phase 33: the recorded file replayed to rgb through the kernel at
     1024 envs (beside the two per-episode replays). Returns (the kernel's max
-    error, the last frame's kernel inputs, the launches)."""
+    error, the last frame's kernel inputs, the launches, the replayed
+    file's path)."""
     import os
 
     from maniskill_tpu_torch.trajectory import replay_trajectory as replay
@@ -2057,7 +2126,6 @@ def replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, pa
                       f"{name}: {k} {cam} rgb is {ds.shape} {ds.dtype}")
         frame = f[f"{keys[0]}/obs/sensor_data/{cams[0]}/rgb"][()][-1]
     size_gb = os.path.getsize(rgb_path) / 1e9
-    os.remove(rgb_path)
     obs = base.get_obs()
     rgb = obs["sensor_data"][cams[0]]["rgb"]
     check(np.array_equal(rgb[0].cpu().numpy(), frame), f"{name}: the file's last frame of env 0 is not the env's")
@@ -2069,7 +2137,7 @@ def replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, pa
           f"agreeing with the recording in {agree:.6f} of episodes (bound {REPLAY_AGREE_MIN}); kernel launches "
           f"{launches}; every episode's {', '.join(cams)} rgb uint8 (T+1, 128, 128, 3); the last frame of 16 envs "
           f"re-rendered through the plain version: seg agreement {seg_agree:.6f}, rgb equal {card}{SHARED}")
-    return err, inputs, launches
+    return err, inputs, launches, rgb_path
 
 
 def replay_kernel_times(tr, paths, inputs, launches, card):
@@ -2169,6 +2237,234 @@ def rlpd_phase(torch, dev, make, card, converted):
     check(prof["h2d_copies"] == 0, "rlpd: the train step copies host to device")
 
 
+def side_worker(card: str):
+    """Phases 23, 24, 26 and 30 (state, host-bound) in a process of their
+    own. Returns their seconds by phase."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    dev = torch.device("cuda")
+    seconds = {}
+    for phase, fn in (("23", two_robot_phase), ("24", locomotion_phase), ("26", cabinet_state_phase),
+                      ("30", sac_phase)):
+        t0 = time.perf_counter()
+        fn(torch, dev, make, card)
+        seconds[phase] = time.perf_counter() - t0
+    return seconds
+
+
+def _epoch_profile(name, out):
+    """One more epoch of a CLI's trainer under the profiler: 0 syncs, 0
+    host-to-device copies. Returns the printed summary."""
+    from maniskill_tpu_torch.utils.timing import profile_calls
+
+    _, prof = profile_calls(out["epoch"], 1)
+    check(prof["syncs"] == 0, f"{name}: an epoch syncs with the device {prof['syncs']:.0f} times")
+    check(prof["h2d_copies"] == 0, f"{name}: an epoch copies host to device")
+    return (f"one epoch profiled: {prof['launches']:.0f} launches, {prof['syncs']:.0f} stream/event syncs, "
+            f"{prof['h2d_copies']:.0f} host-to-device copies, device kernels {prof['device_kernel_ms']:.1f} ms of "
+            f"{prof['wall_ms']:.1f} ms")
+
+
+def dp_state_worker(path: str, card: str):
+    """Phase 35: Diffusion Policy on phase 32's recording (state) at the
+    CLI's defaults for DP_EPOCHS epochs (the eps-MSE falling), the CLI's
+    eval in IL_EVAL_ENVS envs, and one more epoch under the profiler.
+    Returns its seconds."""
+    from maniskill_tpu_torch.examples.baselines import diffusion_policy as dp
+
+    t0 = time.perf_counter()
+    name = f"dp state {IL_ENV} x{IL_EVAL_ENVS}"
+    out, printed = _quiet(dp.main, ["--traj-path", path, "--env-id", IL_ENV, "--epochs", str(DP_EPOCHS),
+                                    "--eval-episodes", str(IL_EVAL_ENVS)])
+    loss = out["loss"]
+    check(all(np.isfinite(loss)) and loss[-1] < loss[0], f"{name}: the eps-MSE did not fall: {loss}")
+    check(0.0 <= out["eval_success"] <= 1.0, f"{name}: eval success {out['eval_success']}")
+    prof = _epoch_profile(name, out)
+    print(f"{name} on the recorded file ({printed.splitlines()[0]}; unet 64 128 256, batch 512, 50 diffusion "
+          f"steps): eps-MSE {', '.join(f'{x:.5f}' for x in loss)} over {DP_EPOCHS} epochs, "
+          f"{out['epochs_per_s']:.3f} epochs/s; sample_chunk {out['sample_ms']:.1f} ms ({IL_EVAL_ENVS} envs, 50 "
+          f"denoiser passes); eval success_once {out['eval_success']:.4f}; {prof} {card}")
+    return time.perf_counter() - t0
+
+
+def dp_rgb_worker(rgb_path: str, card: str):
+    """Phase 36: Diffusion Policy on phase 33's frames (re-rendered by the
+    kernel) for DP_RGB_EPOCHS epochs, then the CLI's eval in an rgb env
+    through the kernel: launches == resets + steps, the last frame of the
+    IL_EVAL_ENVS envs held to the plain version. Returns (the launches, that
+    frame's kernel inputs on the host for timing alone, the kernel's max
+    error, seconds)."""
+    import torch
+
+    from maniskill_tpu_torch.examples.baselines import diffusion_policy as dp
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    t0 = time.perf_counter()
+    kernel = tr.KERNEL
+    kernel.build()
+    name = f"dp rgb {IL_ENV} x{IL_EVAL_ENVS}"
+    kernel.launches = 0
+    out, printed = _quiet(dp.main, ["--traj-path", rgb_path, "--env-id", IL_ENV, "--obs-mode", "rgb", "--epochs",
+                                    str(DP_RGB_EPOCHS), "--eval-episodes", str(IL_EVAL_ENVS)])
+    launches = kernel.launches
+    base = out["env"].unwrapped
+    steps = int(base.elapsed_steps.max())
+    # make's first reset, the eval's reset, then the steps
+    check(launches == 2 + steps, f"{name}: kernel launches {launches} != resets + steps {2 + steps}")
+    check(all(np.isfinite(out["loss"])), f"{name}: eps-MSE {out['loss']}")
+    rgb = out["obs"]["sensor_data"]["base_camera"]["rgb"]
+    inputs, err, agree = rerender_check(base, "base_camera", IL_EVAL_ENVS, tr, tiled_inputs, geom_poses, rgb, name)
+    lines = printed.splitlines()
+    print(f"{name} on the replayed frames ({lines[0]}; {lines[1]}): eps-MSE {out['loss'][0]:.5f} after "
+          f"{DP_RGB_EPOCHS} epoch(s), {out['epochs_per_s']:.3f} epochs/s; sample_chunk {out['sample_ms']:.1f} ms; "
+          f"eval success_once {out['eval_success']:.4f}; kernel launches {launches} == resets + steps, the last "
+          f"frame of {IL_EVAL_ENVS} envs re-rendered through the plain version: seg agreement {agree:.6f}, rgb "
+          f"equal {card}")
+    return launches, [x.cpu() if isinstance(x, torch.Tensor) else x for x in inputs], err, time.perf_counter() - t0
+
+
+def act_worker(path: str, card: str):
+    """Phase 37: ACT on phase 32's recording at the CLI's defaults for
+    ACT_EPOCHS epochs, the CLI's eval with whole chunks and with
+    ``--temporal-agg`` in IL_EVAL_ENVS envs, one more epoch under the
+    profiler. Returns its seconds."""
+    from maniskill_tpu_torch.examples.baselines import act
+
+    t0 = time.perf_counter()
+    name = f"act {IL_ENV} x{IL_EVAL_ENVS}"
+    out, printed = _quiet(act.main, ["--traj-path", path, "--env-id", IL_ENV, "--epochs", str(ACT_EPOCHS),
+                                     "--eval-episodes", str(IL_EVAL_ENVS)])
+    check(all(np.isfinite(out["loss"])), f"{name}: loss {out['loss']}")
+    t1 = time.perf_counter()
+    agg = float(act.evaluate(out["env"], out["model"], temporal_agg=True).float().mean())
+    agg_s = time.perf_counter() - t1
+    prof = _epoch_profile(name, out)
+    print(f"{name} on the recorded file ({printed.splitlines()[0]}; dim 256, 4 heads, 3 layers, batch 256): loss "
+          f"{', '.join(f'{x:.5f}' for x in out['loss'])} over {ACT_EPOCHS} epochs, {out['epochs_per_s']:.3f} "
+          f"epochs/s; eval success_once {out['eval_success']:.4f} with whole chunks, {agg:.4f} with "
+          f"--temporal-agg ({agg_s:.2f} s); {prof} {card}")
+    return time.perf_counter() - t0
+
+
+def rfcl_sb3_worker(tmp: str, card: str):
+    """Phase 38: RFCL's CLI at its defaults on the repo's PickCube demos
+    (warm-up, then learning train steps), one more learning train step under
+    the profiler (0 syncs, 0 host-to-device copies), a curriculum reset on
+    the card restoring a demo state within STATE_RESTORE_TOL; then
+    SB3_STEPS steps of the SB3 adapter, one of them profiled (one
+    device-to-host copy). Returns its seconds."""
+    import os
+
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.examples.baselines import rfcl as rfcl_cli
+    from maniskill_tpu_torch.parallel.rfcl import gather_start_states
+    from maniskill_tpu_torch.utils.timing import profile_calls
+    from maniskill_tpu_torch.vector.sb3 import ManiSkillSB3VectorEnv
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    uid, n_envs, warmup, learn = RFCL_CELL
+    name = f"rfcl {uid} x{n_envs}"
+    out, printed = _quiet(rfcl_cli.main, ["--env-id", uid, "--demos", RFCL_DEMOS, "--num-envs", str(n_envs),
+                                          "--total-steps", str((warmup + learn) * n_envs * 4), "--warmup-steps",
+                                          str(warmup), "--save-path", os.path.join(tmp, "rfcl.pkl")])
+    trainer = out["trainer"]
+    check(all(np.isfinite(v) for v in out["metrics"].values()), f"{name}: metrics {out['metrics']}")
+    check(all(bool(torch.isfinite(p).all()) for p in trainer.actor.parameters()), f"{name}: non-finite params")
+    obs, elapsed = out["obs"], out["elapsed"]
+    _, prof = profile_calls(lambda: trainer.train_step(obs, elapsed, learn=True), 1)
+    check(prof["syncs"] == 0, f"{name}: the train step syncs with the device")
+    check(prof["h2d_copies"] == 0, f"{name}: the train step copies host to device")
+    m = out["metrics"]
+    print(f"{name} on the repo's demos ({printed.splitlines()[0]}): {warmup} warm-up and {learn} learning train "
+          f"steps at the CLI's defaults (batch 1024, utd 4), {out['env_steps_per_s']:.1f} env-steps/s, q_loss "
+          f"{m['q_loss']:.4f}, mean_k {m['mean_k']:.2f}, eval success(any) {out['eval_success']:.4f}; one learning "
+          f"train step profiled: {prof['launches']:.0f} launches, {prof['syncs']:.0f} stream/event syncs, "
+          f"{prof['h2d_copies']:.0f} host-to-device copies, device kernels {prof['device_kernel_ms']:.1f} ms of "
+          f"{prof['wall_ms']:.1f} ms {card}")
+    # the collect's curriculum reset: env 0 to its demo's state one from the end
+    base = trainer.base
+    mask = torch.zeros(n_envs, dtype=torch.bool, device=dev)
+    mask[0] = True
+    ones = torch.ones_like(trainer.k)
+    start = gather_start_states(trainer.demo_states, trainer.demo_lens, trainer.env_demo, ones)
+    base._reset_impl(mask, torch.zeros(n_envs, dtype=torch.int64, device=dev), start)
+    state = base.get_state_dict()
+    d = int(trainer.env_demo[0])
+    idx = int(trainer.demo_lens[d]) - 2
+    err = max(float((state[g][k][0] - trainer.demo_states[g][k][d, idx]).abs().max())
+              for g, k in (("actors", "cube"), ("actors", "goal_site"), ("articulations", "panda")))
+    check(err <= STATE_RESTORE_TOL, f"{name}: a curriculum reset parts from the demo state by {err}")
+    print(f"{name}: a curriculum reset on the card restores demo {d}'s state {idx} within {err:.3g} "
+          f"(bound {STATE_RESTORE_TOL}) {card}")
+    vec = ManiSkillSB3VectorEnv(make(uid, num_envs=n_envs, obs_mode="state", device=dev))
+    vec.reset()
+    rng = np.random.default_rng(0)
+    actions = rng.uniform(-1, 1, (n_envs,) + vec.action_space.shape).astype(np.float32)
+    t1 = time.perf_counter()
+    for _ in range(SB3_STEPS):
+        v_obs, rew, dones, infos = vec.step(actions)
+    sb3_s = time.perf_counter() - t1
+    check(isinstance(v_obs, np.ndarray) and v_obs.shape[0] == n_envs and len(infos) == n_envs,
+          f"sb3: obs {type(v_obs)}, {len(infos)} infos")
+    check(np.isfinite(v_obs).all() and np.isfinite(rew).all(), "sb3: non-finite obs or rewards")
+    events, step = profile_calls(lambda: vec.step(actions), 1)
+    d2h = sum(e.count for e in events.key_averages() if e.key.startswith("Memcpy DtoH"))
+    check(d2h == 1, f"sb3: a step makes {d2h} device-to-host copies")
+    print(f"sb3 adapter {uid} x{n_envs}: {SB3_STEPS} steps of numpy actions in {sb3_s:.2f} s "
+          f"({n_envs * SB3_STEPS / sb3_s:.1f} env-steps/s), obs {v_obs.shape} {v_obs.dtype}, {len(infos)} info "
+          f"dicts; one step profiled: {d2h} device-to-host copy, {step['h2d_copies']:.0f} host-to-device, "
+          f"{step['syncs']:.0f} stream/event syncs {card}")
+    return time.perf_counter() - t0
+
+
+def data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, stamp):
+    """Phases 32-38. The two per-episode replays (one env, ~0.3 s a step) and
+    the last trainers (phases 35-38) run in processes of their own: RFCL and
+    SB3 from the start, DP state and ACT once phase 32's recording exists,
+    DP rgb once phase 33's frames do; the planner CLI's wall times, the
+    replay kernel's and RLPD's are taken with the card to this process
+    alone. Returns the kernel's max error on the rgb paths."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pool = spawn_pool(6)
+        try:
+            rfcl = pool.submit(rfcl_sb3_worker, tmp, card + TRAINER_SHARED)
+            path, futures, converted = record_phase(torch, dev, make, card, tmp, pool)
+            trainers = dict(dp_state=pool.submit(dp_state_worker, path, card + TRAINER_SHARED),
+                            act=pool.submit(act_worker, path, card + TRAINER_SHARED))
+            max_err, inputs, launches, rgb_path = replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses,
+                                                               paths, path, tmp)
+            trainers["dp_rgb"] = pool.submit(dp_rgb_worker, rgb_path, card + TRAINER_SHARED)
+            bc_phase(torch, dev, make, card, path)
+            episode_replays_finish(futures, path, card)
+            dp_rgb_launches, dp_rgb_inputs, err, dp_rgb_s = trainers["dp_rgb"].result()
+            max_err = max(max_err, err)
+            seconds = dict(dp_state=trainers["dp_state"].result(), dp_rgb=dp_rgb_s, act=trainers["act"].result(),
+                           rfcl_sb3=rfcl.result())
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        stamp("phases 32-33 and 35-38 (" + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+              + " in their processes)")
+        replay_kernel_times(tr, paths, inputs, launches, card)
+        dp_rgb = dict(launches=dp_rgb_launches, **kernel_times(tr.KERNEL, tr, [
+            x.to(dev) if isinstance(x, torch.Tensor) else x for x in dp_rgb_inputs], 128, 128))
+        paths[f"dp_rgb_eval_pickcube_{IL_EVAL_ENVS}"] = dp_rgb
+        print(f"raster kernel (dp rgb eval pickcube, {IL_EVAL_ENVS}x128x128, phase 36's last frame): "
+              f"{dp_rgb['ms']:.4f} ms/frame vs plain {dp_rgb['plain_ms']:.3f} ms, bound {dp_rgb['bound_ms']:.4f} ms "
+              f"({dp_rgb['bound_by']}) {card}")
+        rlpd_phase(torch, dev, make, card, converted)
+    stamp("phase 34")
+    return max_err
+
+
 def main(device: str = "cuda"):
     try:
         import torch
@@ -2235,6 +2531,8 @@ def main(device: str = "cuda"):
         print(f"kernel == plain on {name}: seg/rgb equal, depth bit-equal, dropped {int(dk)}, "
               f"fg {(sk >= 0).float().mean().item():.3f}")
 
+    stamp("phases 1-3")
+
     paths = {}  # per rgb path: launches and the kernel's numbers at its shapes
 
     # ---- phase 4: Cartpole RGB ------------------------------------------------
@@ -2276,6 +2574,8 @@ def main(device: str = "cuda"):
     print(f"cartpole: {n_steps} steps x {n_envs} envs, kernel launches {launches}, dropped 0, "
           f"seg agreement with plain (32 envs) {agree:.6f} (bound {SEG_AGREE_MIN})")
 
+    stamp("phase 4")
+
     # ---- phase 5: Cartpole timings ------------------------------------------
     table, valid = tr.face_records(*inputs)
     idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
@@ -2294,6 +2594,8 @@ def main(device: str = "cuda"):
     print(f"cartpole tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame {card}")
     print(f"cartpole faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}")
     del env, base, inputs, table, idx, counts
+
+    stamp("phase 5")
 
     # ---- phase 6: PickCube-v1 state, 4096 envs ------------------------------
     uid, n_envs, n_steps = PICKCUBE_STATE
@@ -2348,6 +2650,8 @@ def main(device: str = "cuda"):
           f"{float(finger.norm(dim=-1).mean()):.3f} N mean")
     del env, base, state, data
 
+    stamp("phases 6-7")
+
     # ---- phase 8: PickCube-v1 rgb, 2048 envs --------------------------------
     uid, n_envs, n_steps = PICKCUBE_RGB
     t0 = time.perf_counter()
@@ -2400,6 +2704,8 @@ def main(device: str = "cuda"):
           f"faces in the scene {inputs[0].shape[1]}")
     del env, base, inputs, table, idx, counts, obs, rgb
 
+    stamp("phase 8")
+
     # ---- phase 9: Franka benchmarks, state ----------------------------------
     for uid, n_envs, n_steps in FRANKA:
         env = make(uid, num_envs=n_envs, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev)
@@ -2417,14 +2723,15 @@ def main(device: str = "cuda"):
               f"{n_envs * n_steps / step_s:.1f} env-steps/s ({step_s / n_steps * 1e3:.2f} ms/step, eager) {card}")
         del env, base, data
 
-    stamp("phases 1-9")
+    stamp("phase 9")
 
     # ---- phases 10-11: PPO state, PickCube-v1 --------------------------------
     env, trainer, _, _ = ppo_phase(torch, dev, make, card, "state", PPO_STATE, None)
+    stamp("phase 10")
     evaluate_checkpoint(torch, env, trainer, STATE_CKPT, STATE_SUCCESS_MIN, card)
     del env, trainer
 
-    stamp("phases 10-11")
+    stamp("phase 11")
 
     # ---- phases 12-13: PPO rgb, PushCube-v1 ---------------------------------
     env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgb", PPO_RGB, kernel)
@@ -2453,76 +2760,58 @@ def main(device: str = "cuda"):
 
     stamp("phases 12-13")
 
-    # ---- phase 14: end-effector and joint-velocity control ----------------
-    ee_control_phase(torch, dev, make, card)
-
-    stamp("phase 14")
-
     # ---- phase 15: PickCube rgb+depth+segmentation vs state ----------------
     max_err = max(max_err, rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
 
     stamp("phase 15")
 
-    # ---- phases 16-17: the batched motion planner ----------------------------
-    max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
-
+    # ---- phases 14, 16-31 -------------------------------------------------------
+    # host-bound state paths overlap, each launching from a process of its
+    # own while the card stays mostly idle: phase 16's planner batches (4
+    # processes), phases 23, 24, 26 and 30 (one process) and phases 14, 18,
+    # 20 and 21 here; then TD-MPC2 (its planner is device-bound), the rest of
+    # phases 16-17 (the planner CLI alone) and the rgb phases, whose kernel
+    # times are taken, with the card to this process alone
+    planner = planner_pool_start(card)
+    side_pool = spawn_pool(1)
+    side = side_pool.submit(side_worker, card + SIDE_SHARED)
+    try:
+        shared = card + PLANNER_SHARED
+        ee_control_phase(torch, dev, make, shared)
+        stamp("phase 14")
+        ycb_state_phase(torch, dev, make, shared)
+        stamp("phase 18")
+        clutter_phase(torch, dev, make, shared)
+        stamp("phase 20")
+        family_state_phase(torch, dev, make, shared)
+        stamp("phase 21")
+        side_s = side.result()
+    finally:
+        side_pool.shutdown(wait=True, cancel_futures=True)
+        planner[0].shutdown(wait=True, cancel_futures=True)  # its results stay with its futures
+    stamp("phases 23, 24, 26, 30 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in side_s.items())
+          + " in their process)")
+    tdmpc2_phase(torch, dev, make, card)
+    stamp("phase 31")
+    max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, planner))
     stamp("phases 16-17")
 
-    # ---- phases 18-20: convex hulls and per-env objects ----------------------
-    ycb_state_phase(torch, dev, make, card)
     max_err = max(max_err, ycb_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
-    clutter_phase(torch, dev, make, card)
-
-    stamp("phases 18-20")
-
-    # ---- phases 21-23: the rest of the tabletop family -----------------------
-    family_state_phase(torch, dev, make, card)
+    stamp("phase 19")
     max_err = max(max_err, peg_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
-    two_robot_phase(torch, dev, make, card)
-
-    stamp("phases 21-23")
-
-    # ---- phases 24-25: the URDF loader and the locomotion family --------------
-    locomotion_phase(torch, dev, make, card)
+    stamp("phase 22")
     max_err = max(max_err, anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
-
-    stamp("phases 24-25")
-
-    # ---- phases 26-28: the mobile-manipulation family ------------------------
-    cabinet_state_phase(torch, dev, make, card)
+    stamp("phase 25")
     max_err = max(max_err, cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 27")
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
-
-    stamp("phases 26-28")
-
-    # ---- phases 29-31: visual PPO rgbd and the off-policy trainers --------------
+    stamp("phase 28")
     max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
-    sac_phase(torch, dev, make, card)
-    tdmpc2_phase(torch, dev, make, card)
+    stamp("phase 29")
 
-    stamp("phases 29-31")
-
-    # ---- phases 32-34: record, replay and learn from the files ----------------
-    # the two per-episode replays (one env, ~0.3 s a step) run in processes of
-    # their own from the moment the recording exists; the planner CLI's wall
-    # times, the kernel's and RLPD's are taken with the card to themselves
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    with tempfile.TemporaryDirectory() as tmp:
-        pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
-        try:
-            path, futures, converted = record_phase(torch, dev, make, card, tmp, pool)
-            err, inputs, launches = replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, path,
-                                                 tmp)
-            max_err = max(max_err, err)
-            bc_phase(torch, dev, make, card, path)
-            episode_replays_finish(futures, path, card)
-        finally:
-            pool.shutdown(wait=True, cancel_futures=True)
-        replay_kernel_times(tr, paths, inputs, launches, card)
-        rlpd_phase(torch, dev, make, card, converted)
-    stamp("phases 32-34")
+    # ---- phases 32-38: record, replay, learn from the files -------------------
+    max_err = max(max_err, data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths,
+                                                   stamp))
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

@@ -25,6 +25,8 @@ import maniskill_tpu_torch.envs  # noqa: F401
 from maniskill_tpu_torch import make as tmake
 from maniskill_tpu_torch.envs.utils import rewards as trewards
 
+from test_torch_common import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE = dict(obs_mode="rgb", control_mode="pd_joint_delta_pos")
 

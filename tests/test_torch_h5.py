@@ -10,9 +10,12 @@ against h5py, on the CPU.
   the file.
 - The port refuses a chunked, a gzip-filtered and a compact dataset, and a
   file of h5py's ``libver="latest"``, with ``UnsupportedHDF5``.
-- A process that blocks jax, flax, optax, gymnasium, maniskill_tpu, h5py and
-  imageio imports the data path's modules, records two PushCube steps on the
-  CPU and reads the file back.
+- A process that blocks jax, flax, optax, gymnasium, maniskill_tpu, h5py,
+  imageio and pandas imports the data path's modules and the last trainers'
+  (Diffusion Policy, ACT, RFCL, the SB3 adapter, the LeRobot converter,
+  whose ``main`` alone needs pandas and says so), records two PushCube steps
+  on the CPU, reads the file back and runs one Diffusion Policy and one ACT
+  epoch.
 """
 import glob
 import json
@@ -152,14 +155,15 @@ def test_refuses_a_new_format_file(tmp_path):
 
 
 def test_data_path_imports_without_jax_h5py_or_imageio(tmp_path):
-    """The new modules import no jax, flax, optax, gymnasium, maniskill_tpu,
-    h5py or imageio: a process that blocks them records two PushCube steps
-    on the CPU and reads the file back."""
+    """The port's data path and trainers import no jax, flax, optax,
+    gymnasium, maniskill_tpu, h5py, imageio or pandas: a process that blocks
+    them records two PushCube steps on the CPU, reads the file back and
+    trains one Diffusion Policy and one ACT epoch."""
     code = textwrap.dedent(f'''
         import sys
         import importlib.abc
 
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "gymnasium", "maniskill_tpu", "h5py", "imageio")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "gymnasium", "maniskill_tpu", "h5py", "imageio", "pandas")
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path, target=None):
@@ -168,6 +172,8 @@ def test_data_path_imports_without_jax_h5py_or_imageio(tmp_path):
                 return None
 
         sys.meta_path.insert(0, Block())
+        for name in BLOCKED:  # absent, as on the card's machine: find_spec gives None, import raises
+            sys.modules[name] = None
         import numpy as np
         import maniskill_tpu_torch.envs
         from maniskill_tpu_torch import make
@@ -178,6 +184,11 @@ def test_data_path_imports_without_jax_h5py_or_imageio(tmp_path):
         from maniskill_tpu_torch.trajectory import dataset, merge_trajectory, replay_trajectory
         from maniskill_tpu_torch.examples.baselines import bc, rlpd
         from maniskill_tpu_torch.examples.motionplanning import run
+        from maniskill_tpu_torch.examples.baselines import act, diffusion_policy as dp, rfcl as rfcl_cli
+        from maniskill_tpu_torch.parallel import rfcl
+        from maniskill_tpu_torch.trajectory import convert_to_lerobot
+        from maniskill_tpu_torch.vector.sb3 import ManiSkillSB3VectorEnv
+        import torch
 
         env = RecordEpisode(make("PushCube-v1", num_envs=2, device="cpu"), {str(tmp_path)!r},
                             save_video=False, trajectory_name="t")
@@ -190,7 +201,23 @@ def test_data_path_imports_without_jax_h5py_or_imageio(tmp_path):
             assert f["traj_1/actions"].shape == (2, 8)
             assert f["traj_1/env_states/actors/cube"].shape == (3, 13)
         visualization.images_to_video([np.zeros((4, 4, 3), np.uint8)] * 2, {str(tmp_path)!r}, "v")
-        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        try:
+            convert_to_lerobot.main(["--traj-path", "t.h5", "--output-dir", "out"])
+            raise AssertionError("the converter ran without pandas")
+        except ImportError as e:
+            assert "pandas" in str(e), e
+        g = torch.Generator().manual_seed(0)
+        X, Y = torch.randn(16, 22, generator=g), torch.rand(16, 8, 8, generator=g) * 2 - 1
+        XI = torch.randint(0, 256, (16, 2, 32, 32, 3), generator=g, dtype=torch.uint8)
+        model = dp.Denoiser("unet", 8, 8, 22, (32, 32, 3), 2, 64, (16, 32))
+        loss = dp.epoch_step(model, torch.optim.Adam(model.parameters()), X, Y, XI,
+                             torch.as_tensor(dp.ddpm_schedule(6)[2]), dp.draw_epoch(g, 16, 8, 6, 8, 8))
+        assert torch.isfinite(loss), loss
+        model = act.ACT(22, 8, 8, dim=16, heads=2, layers=1, latent_dim=4)
+        loss = act.epoch_step(model, torch.optim.AdamW(model.parameters(), weight_decay=1e-4), X, Y, 10.0,
+                              act.draw_epoch(g, 16, 8, 4))
+        assert torch.isfinite(loss), loss
+        loaded = [m for m, mod in sys.modules.items() if m.split(".")[0] in BLOCKED and mod is not None]
         assert not loaded, loaded
         print("RECORD_OK")
     ''')

@@ -40,7 +40,7 @@ from maniskill_tpu_torch.physics import solver as tsolver
 from maniskill_tpu_torch.physics.collision import collide as tcollide
 from maniskill_tpu_torch.physics.types import BOX, CYLINDER, FREE, HINGE, KINEMATIC, PLANE, SLIDE, SPHERE
 
-from test_torch_common import f32_reference_solver  # noqa: F401
+from test_torch_common import f32_reference_solver, one_torch_thread  # noqa: F401
 
 jstep = importlib.import_module("maniskill_tpu.physics.step")
 tstep = importlib.import_module("maniskill_tpu_torch.physics.step")

@@ -2,12 +2,18 @@
 CPU: it evaluates the repo's JAX-trained state checkpoint, and a short
 training run saves weights that load back as a flax parameter tree.
 
-The CLI imports no JAX, so this file needs none.
+The CLI imports no JAX, so this file needs none. It runs on one torch
+thread (``one_torch_thread``): the eager CPU step is thousands of small ops,
+and with the suite's parallel workers torch's default threads oversubscribe
+the cores (on 8 cores with six workers the checkpoint's evaluation took
+177.62 s, against 20.76 s alone).
 """
 import numpy as np
 
 from maniskill_tpu_torch.examples.baselines import ppo
 from maniskill_tpu_torch.parallel import train
+
+from test_torch_common import one_torch_thread  # noqa: F401
 
 STATE_CKPT = "examples_checkpoints/ppo_pickcube_state.pkl"
 

@@ -41,6 +41,8 @@ from maniskill_tpu_torch.sensors.camera import Camera as TCamera
 from maniskill_tpu_torch.sensors.camera import CameraConfig as TCameraConfig
 from maniskill_tpu_torch.utils.scene_utils import look_at as tlook_at
 
+from test_torch_common import one_torch_thread  # noqa: F401
+
 
 def random_faces(rng, B, F, H, W, band_rows=None):
     """Well-shaped random triangles (rotated, jittered equilateral) in screen
