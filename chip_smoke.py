@@ -224,6 +224,27 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      host-to-device copies), a curriculum reset on the card restoring its
      demo's state within 1e-5; then 5 steps of the SB3 adapter
      (vector/sb3.py) at 256 envs, one profiled: one device-to-host copy.
+ 39. The dexterity family and the taskless robots, state, zero actions, in
+     a process of its own beside phases 14, 18, 20, 21 and the process of
+     23, 24, 26 and 30: TriFingerRotateCubeLevel4, RotateValveLevel2,
+     RotateSingleObjectInHandLevel3 and InsertFlower at 4096 envs (make
+     time, 5 timed steps, one profiled step with its launches, 0
+     stream/event syncs and 0 host-to-device copies, overflow 0, every
+     step's obs and reward finite, success false in every env); their
+     first 16 envs from one state on the card and in the port on the CPU,
+     2 zero-action steps, qpos within 1e-4 and obs within 1e-3 (the
+     in-hand task's cumulative angle); the Allegro touch
+     forces (B, 4, 3) finite; the other 11 levels at 1024 envs, reset and
+     2 steps (finite, overflow 0, success false but where TriFinger's
+     levels 0, 1 and 3 drew a goal within 2 cm of the arena's centre, which
+     the resting cube meets); Empty-v1 at 256 envs with
+     each of the 9 robots no task uses, 3 random steps: the state finite
+     and every keyframe of the robot's dof.
+ 40. RotateValveLevel2-v1 rgb, 2048 envs (per-env spoke sizes in the model,
+     nominal visuals): 10 timed steps; kernel launches == resets + steps,
+     dropped == 0, the last frame of 16 envs re-rendered through the plain
+     version (seg agreement >= 0.999, rgb equal), the valve in view, faces
+     per band and the kernel's ms per frame against its bound.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -234,10 +255,11 @@ times 10 steps per mode, phase 15 16 step pairs, phases 21 and 23 5 steps
 per task and phases 30-31 10 and 16 train steps, so that the whole run
 stays well inside its time limit. The host-bound state paths overlap,
 each launching from a process of its own while the card stays mostly idle:
-after phase 15, phase 16's planner batches (4 processes) and phases 23, 24,
-26 and 30 (one process) run beside phases 14, 18, 20 and 21; then TD-MPC2
+after phase 15, phase 16's planner batches (4 processes), phases 23, 24,
+26 and 30 (one process) and phase 39 (one process) run beside phases 14,
+18, 20 and 21; then TD-MPC2
 (phase 31, whose planner is device-bound), the rest of 16-17 (the planner
-CLI alone on the card) and the rgb phases 19, 22, 25, 27 with 28 and 29,
+CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40 with 28 and 29,
 whose kernel times are taken, with the card to this process alone; in
 phases 32-34 the two per-episode replays and phases 35-38 run in processes
 of their own. A rate or a device time taken beside other processes says so
@@ -427,12 +449,14 @@ STATE_RESTORE_TOL = 1e-5
 BC_EPOCHS = 5
 RLPD_CELL = ("PickCube-v1", 1, 3)
 SHARED = " (sharing the card with phase 33's two per-episode replays and phases 35-38's processes)"
-# phases 14, 16, 18, 20, 21, 23, 24, 26 and 30 overlap in processes of their
-# own: each of these host-bound paths launches its kernels from its own
+# phases 14, 16, 18, 20, 21, 23, 24, 26, 30 and 39 overlap in processes of
+# their own: each of these host-bound paths launches its kernels from its own
 # process while the card stays mostly idle
-PLANNER_SHARED = " (beside phase 16's planner processes and the process of phases 23, 24, 26 and 30)"
-SIDE_SHARED = " (in a process of its own beside phase 16's planner processes and phases 14, 18, 20 and 21)"
-PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26 and 30)"
+PLANNER_SHARED = (" (beside phase 16's planner processes, the process of phases 23, 24, 26 and 30 and that "
+                  "of phase 39)")
+SIDE_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
+               "the process of phase 39)")
+PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26, 30 and 39)"
 # phases 35-38: the last trainers, in processes of their own beside phases
 # 32-34. DP and ACT train on phase 32's recording (DP's rgb leg on phase 33's
 # re-rendered frames) at their CLIs' defaults for a few epochs and evaluate
@@ -445,6 +469,31 @@ RFCL_CELL = ("PickCube-v1", 256, 1, 3)
 RFCL_DEMOS = "demos/PickCube-v1/mp_PickCube-v1.h5"
 SB3_STEPS = 5
 TRAINER_SHARED = " (in a process of its own beside phases 32-34)"
+# phase 39: the dexterity family, state, zero actions: the four timed tasks
+# (env, action width) at DEX_ENVS, the other levels at DEX_LEVEL_ENVS, and
+# Empty-v1 with each robot no task uses (random actions)
+DEX_TIMED = (("TriFingerRotateCubeLevel4-v1", 9), ("RotateValveLevel2-v1", 9),
+             ("RotateSingleObjectInHandLevel3-v1", 16), ("InsertFlower-v1", 7))
+DEX_ENVS, DEX_STEPS = 4096, 5
+DEX_LEVELS = (tuple((f"TriFingerRotateCubeLevel{i}-v1", 9) for i in range(4))
+              + tuple((f"RotateValveLevel{i}-v1", 9) for i in (0, 1, 3, 4))
+              + tuple((f"RotateSingleObjectInHandLevel{i}-v1", 16) for i in range(3)))
+DEX_LEVEL_ENVS, DEX_LEVEL_STEPS = 1024, 2
+# the card's first DEX_CPU_ENVS envs against the port on the CPU from one
+# state, DEX_CPU_STEPS zero-action steps: qpos within DEX_CPU_QPOS_TOL, obs
+# within DEX_CPU_OBS_TOL. The in-hand task's obs hold its cumulative angle, an
+# arccos of a dot product near 1, where one f32 ulp below 1 is 3.45e-4 rad,
+# so round-off in the dot moves it by up to that (1.1e-4 apart in the obs
+# with qpos within 1e-7 on an H100 80GB HBM3 at 700 W)
+DEX_CPU_ENVS, DEX_CPU_STEPS, DEX_CPU_QPOS_TOL, DEX_CPU_OBS_TOL = 16, 2, 1e-4, 1e-3
+EMPTY_ROBOTS = ("floating_ability_hand_right", "floating_inspire_hand_right", "floating_inspire_hand_left",
+                "fixed_inspire_hand_right", "fixed_inspire_hand_left", "xarm7", "xarm7_ability",
+                "allegro_hand_right", "allegro_hand_left")
+EMPTY_ENVS, EMPTY_STEPS = 256, 3
+DEX_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
+              "the process of phases 23, 24, 26 and 30)")
+# phase 40: RotateValveLevel2 rgb, the per-env valves through the kernel
+VALVE_RGB = ("RotateValveLevel2-v1", 2048, 10)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (an FMA counts two)
 STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
 RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
@@ -617,6 +666,13 @@ def evaluate_checkpoint(torch, env, trainer, path, success_min, card):
     check(rate >= success_min, f"{path}: greedy success_once {rate:.4f} < {success_min}")
 
 
+def _first_envs(x, n, device):
+    """The first ``n`` envs of a state tree, on ``device``."""
+    if isinstance(x, dict):
+        return {k: _first_envs(v, n, device) for k, v in x.items()}
+    return x[:n].to(device)
+
+
 def ee_control_phase(torch, dev, make, card):
     """Phase 14: the end-effector and joint-velocity modes at 4096 envs."""
     from maniskill_tpu_torch.utils.timing import cuda_ms, profile_calls, timed_steps
@@ -671,10 +727,7 @@ def ee_control_phase(torch, dev, make, card):
             # as the CPU does (the zero-action drift is the reference's own)
             n = 16
             cpu = make(uid, num_envs=n, obs_mode="state", control_mode=mode, device="cpu")
-            def first_envs(x):
-                return {k: first_envs(v) for k, v in x.items()} if isinstance(x, dict) else x[:n].cpu()
-
-            sub = first_envs(state0)
+            sub = _first_envs(state0, n, "cpu")
             cpu.reset(seed=0)
             cpu.unwrapped.set_state_dict(sub)  # after the reset, which sets the targets to qpos
             for _ in range(n_steps):
@@ -1440,6 +1493,188 @@ def anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths
     print(f"raster kernel (anymal c reach, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
     print(f"anymal c reach tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
+          f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
+          f"{inputs[0].shape[1]} {card}")
+    return err
+
+
+def dexterity_cpu_parity(torch, dev, make, uid, state, card):
+    """The first DEX_CPU_ENVS envs of ``state`` on the card and in the port
+    on the CPU: fresh envs of that width reset to it (both solvers start
+    cold) take DEX_CPU_STEPS zero-action steps; qpos within
+    DEX_CPU_QPOS_TOL and obs within DEX_CPU_OBS_TOL. Returns (qpos gap, obs
+    gap)."""
+    m = DEX_CPU_ENVS
+    out = []
+    for d in (dev, torch.device("cpu")):
+        env = make(uid, num_envs=m, obs_mode="state", control_mode="pd_joint_delta_pos", device=d)
+        zero = torch.zeros((m,) + tuple(env.unwrapped.single_action_space.shape), device=d)
+        env.reset(seed=0, options=dict(reset_to_env_states=_first_envs(state, m, d)))
+        for _ in range(DEX_CPU_STEPS):
+            obs, *_ = env.step(zero)
+        out.append((env.unwrapped.scene.data.qpos.cpu(), obs.cpu()))
+        del env
+    (card_q, card_obs), (cpu_q, cpu_obs) = out
+    q_gap = float((card_q - cpu_q).abs().max())
+    o_gap = float((card_obs - cpu_obs).abs().max())
+    check(q_gap <= DEX_CPU_QPOS_TOL and o_gap <= DEX_CPU_OBS_TOL,
+          f"{uid}: the card's first {m} envs part from the CPU's after {DEX_CPU_STEPS} steps by {q_gap:.3g} "
+          f"(qpos, tolerance {DEX_CPU_QPOS_TOL}), {o_gap:.3g} (obs, tolerance {DEX_CPU_OBS_TOL})")
+    print(f"  {uid}: the card's first {m} envs and the CPU port from one state, {DEX_CPU_STEPS} zero-action "
+          f"steps: qpos within {q_gap:.3g} (tolerance {DEX_CPU_QPOS_TOL}), obs within {o_gap:.3g} (tolerance "
+          f"{DEX_CPU_OBS_TOL}) {card}")
+    return q_gap, o_gap
+
+
+def dexterity_state_phase(torch, dev, make, card):
+    """Phase 39: the dexterity family at 4096 (timed) and 1024 envs, and
+    Empty-v1 with each robot no task uses."""
+    n = DEX_ENVS
+    for uid, n_act in DEX_TIMED:
+        rec = dict(success=[], finite=[])
+
+        def after(base, i, out):
+            if i >= 0:
+                rec["success"].append(out[4]["success"].any())
+                rec["finite"].append(torch.isfinite(out[0]).all() & torch.isfinite(out[1]).all())
+
+        env = state_cell(torch, dev, make, card, uid, n, DEX_STEPS, torch.zeros(n, n_act, device=dev), after=after)
+        base = env.unwrapped
+        check(bool(torch.stack(rec["finite"]).all()), f"{uid}: obs or reward not finite in a step")
+        check(not bool(torch.stack(rec["success"]).any()), f"{uid}: success after zero actions")
+        line = f"  {uid}: obs and rewards finite and success false in every env and step"
+        if uid.startswith("RotateSingleObjectInHand"):
+            forces = base.agent.tip_contact_forces
+            check(tuple(forces.shape) == (n, 4, 3) and bool(torch.isfinite(forces).all()),
+                  f"{uid}: touch forces {tuple(forces.shape)} or not finite")
+            line += (f"; touch forces (B, 4, 3) finite, max {float(forces.norm(dim=-1).max()):.3f} N; "
+                     f"{len(set(base.model_ids))} YCB models")
+        if uid.startswith("RotateValve"):
+            spokes = base.scene.model.geom_size[:, base.spoke_geom_ids(), 1]
+            n_len = len(torch.unique(spokes[:, 0]))
+            check(tuple(spokes.shape) == (n, 3) and n_len > n // 2, f"{uid}: {n_len} distinct spoke lengths")
+            line += f"; {n_len} distinct spoke lengths in {n} envs (per-env geom sizes)"
+        print(line)
+        dexterity_cpu_parity(torch, dev, make, uid, base.get_state_dict(), card)
+        del env, base
+
+    m = DEX_LEVEL_ENVS
+    for uid, n_act in DEX_LEVELS:
+        t0 = time.perf_counter()
+        env = make(uid, num_envs=m, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev)
+        base = env.unwrapped
+        zero = torch.zeros(m, n_act, device=dev)
+        env.reset(seed=0)
+        for _ in range(DEX_LEVEL_STEPS):
+            obs, rew, _, _, info = env.step(zero)
+        data = base.scene.data
+        check(bool(torch.isfinite(obs).all() & torch.isfinite(rew).all() & torch.isfinite(data.qpos).all()
+                   & torch.isfinite(data.qvel).all()), f"{uid}: state not finite")
+        check(int(data.contact.overflow.max()) == 0, f"{uid} x{m}: contact overflow")
+        # TriFinger's levels 0, 1 and 3 draw some goals that the cube resting
+        # at the arena's centre meets (within 2 cm and 0.1 rad): success only
+        # there
+        allowed = torch.zeros_like(info["success"])
+        if uid.startswith("TriFinger"):
+            allowed = base.obj_goal.pose.p[:, :2].norm(dim=-1) < base.goal_radius + 1e-3
+        met = int(info["success"].sum())
+        check(not bool((info["success"] & ~allowed).any()), f"{uid}: success after zero actions away from the "
+                                                            f"cube's resting place")
+        torch.cuda.synchronize()
+        where = f" but the {met} whose goal lies where the cube rests" if uid.startswith("TriFinger") else ""
+        print(f"{uid} state x{m}: make, reset and {DEX_LEVEL_STEPS} steps in {time.perf_counter() - t0:.2f} s; "
+              f"finite, overflow 0; success false in every env{where} {card}")
+        del env, base, data
+
+    k = EMPTY_ENVS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for robot in EMPTY_ROBOTS:
+        t0 = time.perf_counter()
+        env = make("Empty-v1", num_envs=k, obs_mode="state", robot_uids=robot, device=dev)
+        base = env.unwrapped
+        shape = (k,) + tuple(base.single_action_space.shape)
+        env.reset(seed=0)
+        for _ in range(EMPTY_STEPS):
+            obs, *_ = env.step(torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+        data = base.scene.data
+        check(bool(torch.isfinite(obs).all() & torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()),
+              f"Empty-v1 {robot}: state not finite")
+        dof = base.agent.robot.dof
+        for name, kf in base.agent.keyframes.items():
+            check(np.asarray(kf.qpos).reshape(-1).shape[0] == dof, f"{robot} keyframe {name} is not of dof {dof}")
+        torch.cuda.synchronize()
+        print(f"Empty-v1 {robot} x{k}: dof {dof}, {shape[1]} actions, {EMPTY_STEPS} random steps in "
+              f"{time.perf_counter() - t0:.2f} s with the make; finite; keyframes {sorted(base.agent.keyframes)} "
+              f"of the dof; contact.overflow max {int(data.contact.overflow.max())} {card}")
+        del env, base, data
+
+
+def dexterity_worker(card: str):
+    """Phase 39 in a process of its own. Returns its seconds."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    torch.set_num_threads(2)  # the CPU port's parity steps, beside the other processes
+    t0 = time.perf_counter()
+    dexterity_state_phase(torch, torch.device("cuda"), make, card)
+    return time.perf_counter() - t0
+
+
+def valve_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 40: RotateValveLevel2 rgb at 2048 envs through the kernel, the
+    valves' spoke sizes per env in the model. Returns the kernel's max depth
+    error against the plain version."""
+    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+
+    uid, n_envs, n_steps = VALVE_RGB
+    kernel = tr.KERNEL
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
+    base = env.unwrapped
+    zero = torch.zeros(n_envs, 9, device=dev)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    print(f"{uid} rgb x{n_envs}: built and warmed up in {time.perf_counter() - t0:.2f} s")
+    check(tuple(base.scene.model.geom_size.shape[:1]) == (n_envs,), f"{uid} rgb: geom_size is not per env")
+    kernel.launches = 0
+    env.reset(seed=0)
+    step_s = timed_steps(env, zero, n_steps - 1)
+    obs, *_ = env.step(zero)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(launches == 1 + n_steps, f"{uid} rgb: kernel launches {launches} != resets + steps {1 + n_steps}")
+    check(int(base.scene.data.contact.overflow.max()) == 0, f"{uid} rgb: contact overflow")
+    check(bool(torch.isfinite(obs["agent"]["qpos"]).all() & torch.isfinite(obs["agent"]["qvel"]).all()),
+          f"{uid} rgb: agent obs not finite")
+    rgb = obs["sensor_data"]["base_camera"]["rgb"]
+    check(tuple(rgb.shape) == (n_envs, 128, 128, 3) and rgb.dtype == torch.uint8,
+          f"{uid} rgb is {tuple(rgb.shape)} {rgb.dtype}")
+    inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, rgb, f"{uid} rgb")
+    cam = base._sensors["base_camera"]
+    seg = cam.get_obs(rgb=False, segmentation=True, hidden_actors=base._hidden_objects)["segmentation"][..., 0]
+    ids = torch.tensor([link.per_scene_id for link in base.valve.links], device=dev)
+    valve_px = torch.isin(seg, ids).flatten(1).sum(1)
+    check(bool((valve_px > 0).all()), f"{uid} rgb: the valve is out of view in {int((valve_px == 0).sum())} envs")
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
+    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
+    frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+    paths[f"rotatevalve_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                             bound_by=bound_by)
+    print(f"{uid} rgb x{n_envs}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} "
+          f"ms/step, eager), kernel launches {launches}, last frame of 16 envs re-rendered through the plain "
+          f"version: seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; the valve in view in every "
+          f"env ({int(valve_px.min())}-{int(valve_px.max())} px) {card}")
+    print(f"raster kernel (rotate valve, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
+    print(f"rotate valve tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
           f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
           f"{inputs[0].shape[1]} {card}")
     return err
@@ -2773,8 +3008,9 @@ def main(device: str = "cuda"):
     # phases 16-17 (the planner CLI alone) and the rgb phases, whose kernel
     # times are taken, with the card to this process alone
     planner = planner_pool_start(card)
-    side_pool = spawn_pool(1)
+    side_pool = spawn_pool(2)
     side = side_pool.submit(side_worker, card + SIDE_SHARED)
+    dex = side_pool.submit(dexterity_worker, card + DEX_SHARED)
     try:
         shared = card + PLANNER_SHARED
         ee_control_phase(torch, dev, make, shared)
@@ -2786,11 +3022,12 @@ def main(device: str = "cuda"):
         family_state_phase(torch, dev, make, shared)
         stamp("phase 21")
         side_s = side.result()
+        dex_s = dex.result()
     finally:
         side_pool.shutdown(wait=True, cancel_futures=True)
         planner[0].shutdown(wait=True, cancel_futures=True)  # its results stay with its futures
     stamp("phases 23, 24, 26, 30 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in side_s.items())
-          + " in their process)")
+          + f" in their process) and 39 ({dex_s:.1f} s in its process)")
     tdmpc2_phase(torch, dev, make, card)
     stamp("phase 31")
     max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, planner))
@@ -2804,6 +3041,8 @@ def main(device: str = "cuda"):
     stamp("phase 25")
     max_err = max(max_err, cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 27")
+    max_err = max(max_err, valve_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 40")
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
     stamp("phase 28")
     max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))

@@ -98,6 +98,13 @@ def build_twocolor_peg(
     return _build(builder, name, body_type)
 
 
+def build_colorful_cube(
+    scene, half_size, color, name: str, body_type: str = "dynamic",
+    add_collision: bool = True, initial_pose=None,
+):
+    return build_cube(scene, half_size, color, name, body_type, add_collision, initial_pose)
+
+
 def _build(builder, name, body_type):
     if body_type == "dynamic":
         return builder.build(name)

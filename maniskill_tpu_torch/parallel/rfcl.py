@@ -59,7 +59,7 @@ def _as_device_array(x: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
-def load_demo_states(h5path: str, num_demos: Optional[int] = None, device="cpu"):
+def load_demo_states(h5path: str, num_demos: Optional[int] = None, device="cuda"):
     """Read ``env_states`` from a RecordEpisode .h5 into a nested dict of
     (D, T_max, ...) tensors, each demo padded to T_max by its last state,
     plus per-demo lengths (D,) int32 (T + 1 states). Also returns the flat

@@ -75,6 +75,12 @@ def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(half), axis_angle * sinc], dim=-1)
 
 
+def quat_diff_rad(q0: torch.Tensor, q1: torch.Tensor) -> torch.Tensor:
+    """Angle (rad) between two unit quaternions."""
+    d = torch.abs(torch.sum(q0 * q1, -1))
+    return 2.0 * torch.arccos(torch.clamp(d, -1.0, 1.0))
+
+
 def integrate_quaternion(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
     """q' = exp(0.5 * dt * omega) * q for a world-frame angular velocity."""
     dq = axis_angle_to_quaternion(omega * dt)

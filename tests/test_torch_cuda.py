@@ -346,3 +346,37 @@ def test_state_train_step_on_card(cuda):
     assert torch.isfinite(metrics["loss"])
     for k in ("bad_params", "bad_obs", "bad_rewards"):
         assert int(metrics[k]) == 0, k
+
+
+def test_rotate_valve_rgb_through_the_kernel(cuda):
+    """RotateValveLevel2-v1 rgb (per-env spoke sizes in the model, nominal
+    visuals) at 4 envs: the kernel runs once per frame, and the last frame
+    re-rendered through the plain version is equal."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    n = 4
+    env = make("RotateValveLevel2-v1", num_envs=n, obs_mode="rgb", device=cuda)
+    base = env.unwrapped
+    assert base.scene.model.geom_size.shape[0] == n
+    launches = tr.KERNEL.launches
+    env.reset(seed=0)
+    for _ in range(2):
+        obs, *_ = env.step(torch.zeros(n, 9, device=cuda))
+    assert tr.KERNEL.launches == launches + 3
+    rgb = obs["sensor_data"]["base_camera"]["rgb"]
+    assert rgb.shape == (n, 128, 128, 3) and rgb.is_cuda
+    cam = base._sensors["base_camera"]
+    mesh = cam._get_mesh(tuple(base._hidden_objects))
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj,
+                          128, 128, lights=base.scene.lights)
+    zp, sp, rp, dp = tr.rasterize_tiles_ref(*inputs, 128, 128)
+    assert int(dp) == 0
+    assert torch.equal((torch.clamp(rp, 0, 1) * 255).to(torch.uint8), rgb)
+    valve = {link.per_scene_id for link in base.valve.links}
+    seen = torch.isin(sp, torch.tensor(sorted(valve), device=cuda)).sum((1, 2))
+    assert (seen > 50).all(), seen

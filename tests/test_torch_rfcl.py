@@ -3,6 +3,8 @@ the JAX package's (maniskill_tpu/parallel/rfcl.py), on the CPU.
 
 - ``load_demo_states`` on the repo's PickCube demos: every state leaf, the
   lengths and the flat transitions bit-equal to the JAX loader's.
+  Without an explicit ``device`` it loads onto the card, as every entry
+  point does: without one it raises rather than load onto the CPU.
 - The start-state gather (the JAX ``_gather_start_states``, a closure of its
   collect) equal for random pointers.
 - Whole train steps, a warm-up one and two learning ones (the second in the
@@ -129,7 +131,7 @@ def _leaves(tree, prefix=""):
 
 @pytest.fixture(scope="module")
 def demo_states():
-    return jr.load_demo_states(DEMO, NUM_DEMOS), tr.load_demo_states(DEMO, NUM_DEMOS)
+    return jr.load_demo_states(DEMO, NUM_DEMOS), tr.load_demo_states(DEMO, NUM_DEMOS, device="cpu")
 
 
 def test_load_demo_states_is_bit_equal(demo_states):
@@ -147,8 +149,17 @@ def test_load_demo_states_is_bit_equal(demo_states):
         assert w.dtype == g.dtype and w.shape == g.shape, k
         np.testing.assert_array_equal(g, w, err_msg=k)
     # every demo on its own is bit-equal too (the whole file: 24 demos)
-    jall, tall = jr.load_demo_states(DEMO)[0], tr.load_demo_states(DEMO)[0]
+    jall, tall = jr.load_demo_states(DEMO)[0], tr.load_demo_states(DEMO, device="cpu")[0]
     np.testing.assert_array_equal(tall["actors"]["cube"].numpy(), np.asarray(jall["actors"]["cube"]))
+
+
+def test_load_demo_states_defaults_to_the_card():
+    if torch.cuda.is_available():
+        _, lens, _ = tr.load_demo_states(DEMO, 1)
+        assert lens.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tr.load_demo_states(DEMO, 1)
 
 
 def _demo_mix(seed):

@@ -12,10 +12,11 @@
   and a box fitted by the native cooking library's ``fit_capsule`` and
   ``fit_obb``), the same meshes decomposed into convex hulls, and a visual
   mesh, equal to 1e-9 between the packages.
-- The four URDFs the port loads are byte-equal copies of the JAX package's.
+- The twelve URDFs the port loads are byte-equal copies of the JAX
+  package's, and every URDF under the port's assets is one of them.
 - A process that blocks jax, flax, gymnasium, lxml and maniskill_tpu loads
-  every URDF robot of the port and steps AnymalC-Reach-v1 on the CPU, and
-  opens no file under maniskill_tpu/.
+  every URDF robot of the port, steps AnymalC-Reach-v1 and
+  RotateValveLevel0-v1 on the CPU, and opens no file under maniskill_tpu/.
 """
 import glob
 import os
@@ -38,7 +39,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_ROBOTS = os.path.join(REPO, "maniskill_tpu", "assets", "robots")
 URDFS = sorted(os.path.relpath(p, JAX_ROBOTS) for p in glob.glob(os.path.join(JAX_ROBOTS, "*", "*.urdf")))
 PORT_URDFS = ["anymal_c/anymal_c.urdf", "unitree_go2/go2_description.urdf", "unitree_h1/h1.urdf",
-              "unitree_g1/g1_simplified.urdf"]
+              "unitree_g1/g1_simplified.urdf", "trifinger/trifingerpro.urdf",
+              "ability_hand/ability_hand_right_floating.urdf", "inspire_hand/inspire_hand_left.urdf",
+              "inspire_hand/inspire_hand_left_floating.urdf", "inspire_hand/inspire_hand_right.urdf",
+              "inspire_hand/inspire_hand_right_floating.urdf", "xarm7/xarm7.urdf", "xarm7/xarm7_ability.urdf"]
 LINK_FIELDS = ("name", "parent", "joint_type", "joint_name", "origin_pos", "origin_quat", "axis", "limit",
                "damping", "stiffness", "springref", "armature", "frictionloss", "mass", "com", "inertia", "iquat")
 SHAPE_FIELDS = ("type", "size", "pos", "quat", "friction", "density", "color", "hull", "hull_dirs")
@@ -90,6 +94,12 @@ def test_parse_matches_reference(urdf):
 def test_every_robot_urdf_is_covered():
     """The parametrisation above is the JAX package's 22 robot URDFs."""
     assert len(URDFS) == 22, URDFS
+
+
+def test_port_urdfs_are_the_listed_copies():
+    port_dir = os.path.join(PACKAGE_ASSET_DIR, "robots")
+    found = sorted(os.path.relpath(p, port_dir) for p in glob.glob(os.path.join(port_dir, "*", "*.urdf")))
+    assert found == sorted(PORT_URDFS)
 
 
 @pytest.mark.parametrize("urdf", PORT_URDFS)
@@ -182,7 +192,9 @@ def test_import_and_step_without_jax_or_lxml():
     """The port imports no jax, flax, optax, gymnasium, lxml or
     maniskill_tpu: a process that blocks them loads every URDF robot of the
     port, steps AnymalC-Reach-v1 on the CPU, and opens no file under
-    maniskill_tpu/ (an audit hook records every file it opens)."""
+    maniskill_tpu/ (an audit hook records every file it opens); it makes
+    and steps RotateValveLevel0-v1 too, and builds the URDF robots this
+    slice adds in Empty-v1."""
     code = textwrap.dedent('''
         import os
         import sys
@@ -210,10 +222,20 @@ def test_import_and_step_without_jax_or_lxml():
         from maniskill_tpu_torch import make
 
         for uid, n_act in (("AnymalC-Reach-v1", 12), ("UnitreeGo2-Reach-v1", 12), ("UnitreeH1Stand-v1", 19),
-                           ("UnitreeG1Stand-v1", 13)):
+                           ("UnitreeG1Stand-v1", 13), ("TriFingerRotateCubeLevel4-v1", 9)):
             env = make(uid, num_envs=2, obs_mode="state", control_mode="pd_joint_delta_pos", device="cpu")
             env.reset(seed=0)
             assert env.single_action_space.shape == (n_act,), (uid, env.single_action_space)
+        for robot, n_act in (("floating_ability_hand_right", 12), ("floating_inspire_hand_right", 14),
+                             ("floating_inspire_hand_left", 14), ("fixed_inspire_hand_right", 8),
+                             ("fixed_inspire_hand_left", 8), ("xarm7", 8), ("xarm7_ability", 13)):
+            env = make("Empty-v1", num_envs=2, robot_uids=robot, device="cpu")
+            assert env.single_action_space.shape == (n_act,), (robot, env.single_action_space)
+        env = make("RotateValveLevel0-v1", num_envs=2, obs_mode="state", device="cpu")
+        env.reset(seed=0)
+        for _ in range(2):
+            obs, rew, *_ = env.step(np.zeros((2, 9), np.float32))
+        assert tuple(obs.shape) == (2, 30) and bool(obs.isfinite().all()) and bool(rew.isfinite().all())
         env = make("AnymalC-Reach-v1", num_envs=2, obs_mode="state", control_mode="pd_joint_delta_pos",
                    device="cpu")
         env.reset(seed=0)
