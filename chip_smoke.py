@@ -225,8 +225,9 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      demo's state within 1e-5; then 5 steps of the SB3 adapter
      (vector/sb3.py) at 256 envs, one profiled: one device-to-host copy.
  39. The dexterity family and the taskless robots, state, zero actions, in
-     a process of its own beside phases 14, 18, 20, 21 and the process of
-     23, 24, 26 and 30: TriFingerRotateCubeLevel4, RotateValveLevel2,
+     a process of its own (phase 30 runs in it after them) beside phases
+     14, 18, 20, 21 and the process of 23, 24 and 26:
+     TriFingerRotateCubeLevel4, RotateValveLevel2,
      RotateSingleObjectInHandLevel3 and InsertFlower at 4096 envs (make
      time, 5 timed steps, one profiled step with its launches, 0
      stream/event syncs and 0 host-to-device copies, overflow 0, every
@@ -239,12 +240,33 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      levels 0, 1 and 3 drew a goal within 2 cm of the arena's centre, which
      the resting cube meets); Empty-v1 at 256 envs with
      each of the 9 robots no task uses, 3 random steps: the state finite
-     and every keyframe of the robot's dof.
+     and every keyframe of the robot's dof. The arm slice, in the same
+     process: PickCubeSO100, PickCubeWidowXAI and SO100GraspCube (domain
+     randomization on, pd_joint_target_delta_pos) at 4096 envs (make time,
+     5 timed steps, one profiled step: launches, 0 syncs, 0 copies;
+     overflow 0 and obs and reward finite in every step), their first 16
+     envs from one state on the card and on the CPU (2 zero-action steps,
+     qpos within 1e-4, obs within 1e-3, SO100GraspCube's camera mount
+     handed over with the state and its pose within 1e-4 after the steps);
+     SO100GraspCube's cube half sizes and frictions equal to its host
+     tables in every env, and after each step every camera mount inside
+     its prism with poses distinct across envs; Empty-v1 at 256 envs with
+     each of the 13 arm robots in every control mode it offers, 3 random
+     steps: the state finite and every keyframe of the robot's dof.
  40. RotateValveLevel2-v1 rgb, 2048 envs (per-env spoke sizes in the model,
      nominal visuals): 10 timed steps; kernel launches == resets + steps,
      dropped == 0, the last frame of 16 envs re-rendered through the plain
      version (seg agreement >= 0.999, rgb equal), the valve in view, faces
      per band and the kernel's ms per frame against its bound.
+ 41. SO100GraspCube-v1 rgb+segmentation, 2048 envs, the camera jittered
+     every step, the greenscreen over the procedural overlay (its path does
+     not exist): 10 timed steps; kernel launches == resets + steps, dropped
+     == 0; the last raw frame (before the composite) of 16 envs re-rendered
+     through the plain version (seg agreement >= 0.999, rgb equal); the
+     composite equal to where(keep[seg], raw rgb, overlay) in every env,
+     and in the first 16 from the plain version's seg; the cube and the
+     robot in view in every env; the camera on its mount in every env;
+     faces per band and the kernel's ms per frame against its bound.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -255,11 +277,11 @@ times 10 steps per mode, phase 15 16 step pairs, phases 21 and 23 5 steps
 per task and phases 30-31 10 and 16 train steps, so that the whole run
 stays well inside its time limit. The host-bound state paths overlap,
 each launching from a process of its own while the card stays mostly idle:
-after phase 15, phase 16's planner batches (4 processes), phases 23, 24,
-26 and 30 (one process) and phase 39 (one process) run beside phases 14,
-18, 20 and 21; then TD-MPC2
+after phase 15, phase 16's planner batches (4 processes), phases 23, 24
+and 26 (one process) and phases 39 and 30 (one process) run beside phases
+14, 18, 20 and 21; then TD-MPC2
 (phase 31, whose planner is device-bound), the rest of 16-17 (the planner
-CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40 with 28 and 29,
+CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41 with 28 and 29,
 whose kernel times are taken, with the card to this process alone; in
 phases 32-34 the two per-episode replays and phases 35-38 run in processes
 of their own. A rate or a device time taken beside other processes says so
@@ -452,10 +474,10 @@ SHARED = " (sharing the card with phase 33's two per-episode replays and phases 
 # phases 14, 16, 18, 20, 21, 23, 24, 26, 30 and 39 overlap in processes of
 # their own: each of these host-bound paths launches its kernels from its own
 # process while the card stays mostly idle
-PLANNER_SHARED = (" (beside phase 16's planner processes, the process of phases 23, 24, 26 and 30 and that "
-                  "of phase 39)")
+PLANNER_SHARED = (" (beside phase 16's planner processes, the process of phases 23, 24 and 26 and that of "
+                  "phases 39 and 30)")
 SIDE_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
-               "the process of phase 39)")
+               "the process of phases 39 and 30)")
 PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26, 30 and 39)"
 # phases 35-38: the last trainers, in processes of their own beside phases
 # 32-34. DP and ACT train on phase 32's recording (DP's rgb leg on phase 33's
@@ -491,9 +513,23 @@ EMPTY_ROBOTS = ("floating_ability_hand_right", "floating_inspire_hand_right", "f
                 "allegro_hand_right", "allegro_hand_left")
 EMPTY_ENVS, EMPTY_STEPS = 256, 3
 DEX_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
-              "the process of phases 23, 24, 26 and 30)")
+              "the process of phases 23, 24 and 26)")
+# phase 39, the arm slice: (env, action width, control mode) at ARM_ENVS,
+# SO100GraspCube with its domain randomization on, and Empty-v1 with each
+# arm robot in every control mode it offers
+ARM_TIMED = (("PickCubeSO100-v1", 6, "pd_joint_delta_pos"), ("PickCubeWidowXAI-v1", 7, "pd_joint_delta_pos"),
+             ("SO100GraspCube-v1", 6, "pd_joint_target_delta_pos"))
+ARM_ENVS, ARM_STEPS = 4096, 5
+ARM_ROBOTS = ("so100", "widowxai", "widowxai_wristcam", "xarm6_nogripper", "xarm6_robotiq", "xarm6_robotiq_wristcam",
+              "xarm6_nogripper_wristcam", "ur_10e", "koch-v1.1", "googlerobot", "stompy",
+              "floating_robotiq_2f_85_gripper", "xlerobot")
 # phase 40: RotateValveLevel2 rgb, the per-env valves through the kernel
 VALVE_RGB = ("RotateValveLevel2-v1", 2048, 10)
+# phase 41: SO100GraspCube rgb+segmentation through the kernel and the
+# greenscreen; the overlay's path does not exist, so the task composites its
+# procedural overlay
+GRASP_RGB = ("SO100GraspCube-v1", 2048, 10)
+GRASP_OVERLAY = "no_such_dir/so100_greenscreen.png"
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (an FMA counts two)
 STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
 RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
@@ -1180,7 +1216,8 @@ def clutter_phase(torch, dev, make, card):
     print(f"{uid} x{n}, seed 0, 3 steps: overflow per env {got}, equal to the JAX package's on the CPU {card}")
 
 
-def state_cell(torch, dev, make, card, uid, n_envs, n_steps, zero, after=None, **kw):
+def state_cell(torch, dev, make, card, uid, n_envs, n_steps, zero, after=None, control_mode="pd_joint_delta_pos",
+               **kw):
     """Make ``uid`` at ``n_envs`` in state mode, time ``n_steps`` steps of
     ``zero`` after a warm-up, check the state and overflow, and profile one
     more step (0 syncs, 0 host-to-device copies). ``after(base, i, step
@@ -1189,7 +1226,7 @@ def state_cell(torch, dev, make, card, uid, n_envs, n_steps, zero, after=None, *
     from maniskill_tpu_torch.utils.timing import profile_calls, timed_steps
 
     t0 = time.perf_counter()
-    env = make(uid, num_envs=n_envs, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev, **kw)
+    env = make(uid, num_envs=n_envs, obs_mode="state", control_mode=control_mode, device=dev, **kw)
     torch.cuda.synchronize()
     make_s = time.perf_counter() - t0
     base = env.unwrapped
@@ -1498,31 +1535,34 @@ def anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths
     return err
 
 
-def dexterity_cpu_parity(torch, dev, make, uid, state, card):
+def dexterity_cpu_parity(torch, dev, make, uid, state, card, control_mode="pd_joint_delta_pos", mount=False):
     """The first DEX_CPU_ENVS envs of ``state`` on the card and in the port
     on the CPU: fresh envs of that width reset to it (both solvers start
     cold) take DEX_CPU_STEPS zero-action steps; qpos within
-    DEX_CPU_QPOS_TOL and obs within DEX_CPU_OBS_TOL. Returns (qpos gap, obs
-    gap)."""
+    DEX_CPU_QPOS_TOL and obs within DEX_CPU_OBS_TOL, and with ``mount`` the
+    camera mount's pose (handed over with the state) within
+    DEX_CPU_QPOS_TOL. Returns (qpos gap, obs gap)."""
     m = DEX_CPU_ENVS
     out = []
     for d in (dev, torch.device("cpu")):
-        env = make(uid, num_envs=m, obs_mode="state", control_mode="pd_joint_delta_pos", device=d)
-        zero = torch.zeros((m,) + tuple(env.unwrapped.single_action_space.shape), device=d)
+        env = make(uid, num_envs=m, obs_mode="state", control_mode=control_mode, device=d)
+        base = env.unwrapped
+        zero = torch.zeros((m,) + tuple(base.single_action_space.shape), device=d)
         env.reset(seed=0, options=dict(reset_to_env_states=_first_envs(state, m, d)))
         for _ in range(DEX_CPU_STEPS):
             obs, *_ = env.step(zero)
-        out.append((env.unwrapped.scene.data.qpos.cpu(), obs.cpu()))
-        del env
-    (card_q, card_obs), (cpu_q, cpu_obs) = out
-    q_gap = float((card_q - cpu_q).abs().max())
-    o_gap = float((card_obs - cpu_obs).abs().max())
-    check(q_gap <= DEX_CPU_QPOS_TOL and o_gap <= DEX_CPU_OBS_TOL,
+        out.append([base.scene.data.qpos.cpu(), obs.cpu()] + ([base.camera_mount.pose.raw_pose.cpu()] if mount else []))
+        del env, base
+    gaps = [float((a - b).abs().max()) for a, b in zip(*out)] + [0.0]
+    q_gap, o_gap, m_gap = gaps[:3]
+    check(q_gap <= DEX_CPU_QPOS_TOL and o_gap <= DEX_CPU_OBS_TOL and m_gap <= DEX_CPU_QPOS_TOL,
           f"{uid}: the card's first {m} envs part from the CPU's after {DEX_CPU_STEPS} steps by {q_gap:.3g} "
-          f"(qpos, tolerance {DEX_CPU_QPOS_TOL}), {o_gap:.3g} (obs, tolerance {DEX_CPU_OBS_TOL})")
+          f"(qpos, tolerance {DEX_CPU_QPOS_TOL}), {o_gap:.3g} (obs, tolerance {DEX_CPU_OBS_TOL}), {m_gap:.3g} "
+          f"(camera mount)")
+    mounted = f", the camera mount's pose within {m_gap:.3g}" if mount else ""
     print(f"  {uid}: the card's first {m} envs and the CPU port from one state, {DEX_CPU_STEPS} zero-action "
           f"steps: qpos within {q_gap:.3g} (tolerance {DEX_CPU_QPOS_TOL}), obs within {o_gap:.3g} (tolerance "
-          f"{DEX_CPU_OBS_TOL}) {card}")
+          f"{DEX_CPU_OBS_TOL}){mounted} {card}")
     return q_gap, o_gap
 
 
@@ -1586,40 +1626,117 @@ def dexterity_state_phase(torch, dev, make, card):
               f"finite, overflow 0; success false in every env{where} {card}")
         del env, base, data
 
-    k = EMPTY_ENVS
     gen = torch.Generator(device=dev).manual_seed(0)
     for robot in EMPTY_ROBOTS:
-        t0 = time.perf_counter()
-        env = make("Empty-v1", num_envs=k, obs_mode="state", robot_uids=robot, device=dev)
+        empty_robot_cell(torch, dev, make, card, robot, gen)
+
+
+def empty_robot_cell(torch, dev, make, card, robot, gen, control_mode=None):
+    """Empty-v1 with ``robot`` at EMPTY_ENVS (in its default control mode
+    unless given one), EMPTY_STEPS random steps from ``gen``: the state
+    finite and every keyframe of the robot's dof."""
+    k = EMPTY_ENVS
+    t0 = time.perf_counter()
+    env = make("Empty-v1", num_envs=k, obs_mode="state", robot_uids=robot, control_mode=control_mode, device=dev)
+    base = env.unwrapped
+    shape = (k,) + tuple(base.single_action_space.shape)
+    env.reset(seed=0)
+    for _ in range(EMPTY_STEPS):
+        obs, *_ = env.step(torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+    data = base.scene.data
+    check(bool(torch.isfinite(obs).all() & torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()),
+          f"Empty-v1 {robot} {base.control_mode}: state not finite")
+    dof = base.agent.robot.dof
+    for name, kf in base.agent.keyframes.items():
+        check(np.asarray(kf.qpos).reshape(-1).shape[0] == dof, f"{robot} keyframe {name} is not of dof {dof}")
+    torch.cuda.synchronize()
+    print(f"Empty-v1 {robot} {base.control_mode} x{k}: dof {dof}, {shape[1]} actions, {EMPTY_STEPS} random steps "
+          f"in {time.perf_counter() - t0:.2f} s with the make; finite; keyframes {sorted(base.agent.keyframes)} "
+          f"of the dof; contact.overflow max {int(data.contact.overflow.max())} {card}")
+    modes = base.agent.supported_control_modes
+    del env, base, data
+    return modes
+
+
+def arm_state_phase(torch, dev, make, card):
+    """Phase 39, the arm slice: PickCubeSO100, PickCubeWidowXAI and
+    SO100GraspCube (domain randomization on) at ARM_ENVS, and Empty-v1 with
+    each arm robot in every control mode it offers."""
+    n = ARM_ENVS
+    for uid, n_act, mode in ARM_TIMED:
+        rec = dict(ok=[], mounts=[])
+
+        def after(base, i, out):
+            if i >= 0:
+                rec["ok"].append(torch.isfinite(out[0]).all() & torch.isfinite(out[1]).all()
+                                 & (base.scene.data.contact.overflow == 0).all())
+                if hasattr(base, "camera_mount"):
+                    rec["mounts"].append(base.camera_mount.pose.raw_pose.clone())
+
+        env = state_cell(torch, dev, make, card, uid, n, ARM_STEPS, torch.zeros(n, n_act, device=dev), after=after,
+                         control_mode=mode)
         base = env.unwrapped
-        shape = (k,) + tuple(base.single_action_space.shape)
-        env.reset(seed=0)
-        for _ in range(EMPTY_STEPS):
-            obs, *_ = env.step(torch.rand(shape, generator=gen, device=dev) * 2 - 1)
-        data = base.scene.data
-        check(bool(torch.isfinite(obs).all() & torch.isfinite(data.qpos).all() & torch.isfinite(data.qvel).all()),
-              f"Empty-v1 {robot}: state not finite")
-        dof = base.agent.robot.dof
-        for name, kf in base.agent.keyframes.items():
-            check(np.asarray(kf.qpos).reshape(-1).shape[0] == dof, f"{robot} keyframe {name} is not of dof {dof}")
-        torch.cuda.synchronize()
-        print(f"Empty-v1 {robot} x{k}: dof {dof}, {shape[1]} actions, {EMPTY_STEPS} random steps in "
-              f"{time.perf_counter() - t0:.2f} s with the make; finite; keyframes {sorted(base.agent.keyframes)} "
-              f"of the dof; contact.overflow max {int(data.contact.overflow.max())} {card}")
-        del env, base, data
+        check(bool(torch.stack(rec["ok"]).all()), f"{uid}: obs or reward not finite, or a contact overflow, in a step")
+        line = f"  {uid}: obs and rewards finite and contact.overflow 0 in every env and step"
+        if rec["mounts"]:
+            line += "; " + grasp_tables_and_mounts(torch, dev, base, rec["mounts"])
+        print(line)
+        dexterity_cpu_parity(torch, dev, make, uid, base.get_state_dict(), card, control_mode=mode,
+                             mount=bool(rec["mounts"]))
+        del env, base
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for robot in ARM_ROBOTS:
+        for mode in empty_robot_cell(torch, dev, make, card, robot, gen)[1:]:
+            empty_robot_cell(torch, dev, make, card, robot, gen, control_mode=mode)
+
+
+def grasp_tables_and_mounts(torch, dev, base, mounts):
+    """SO100GraspCube's per-env cube half sizes and frictions in the model
+    equal to its host tables in every env, and the camera mount's pose after
+    each step (``mounts``) inside its prism, moved, and distinct across envs.
+    Returns the summary."""
+    n = base.num_envs
+    gids = base.cube.geom_ids
+    sizes = base.scene.model.geom_size[:, gids].cpu().numpy()
+    fric = base.scene.model.geom_friction[:, gids].cpu().numpy()
+    halfs, frictions = base.host_cube_half_sizes, base.host_cube_frictions
+    check(np.array_equal(sizes, np.broadcast_to(halfs[:, None, None], sizes.shape)),
+          "SO100GraspCube: the model's cube sizes differ from the host table")
+    check(np.array_equal(fric, np.broadcast_to(frictions[:, None], fric.shape)),
+          "SO100GraspCube: the model's cube frictions differ from the host table")
+    center = torch.tensor(base.base_camera_settings["pos"], device=dev)
+    max_off = base.domain_randomization_config.max_camera_offset
+    bound = torch.tensor(max_off, device=dev)
+    worst = 0.0
+    for i, p in enumerate(mounts):
+        off = (p[:, :3] - center).abs()
+        worst = max(worst, float(off.max()))
+        check(bool((off <= bound + 1e-6).all()), f"SO100GraspCube: a camera mount {worst:.4g} m off its base")
+        distinct = torch.unique(p, dim=0).shape[0]
+        check(distinct == n, f"SO100GraspCube: {distinct} distinct mount poses in {n} envs after step {i + 1}")
+        if i:
+            check(bool((p != mounts[i - 1]).any(1).all()), f"SO100GraspCube: a mount kept its pose in step {i + 1}")
+    return (f"cube half sizes {halfs.min():.5f}-{halfs.max():.5f} m and frictions {frictions.min():.4f}-"
+            f"{frictions.max():.4f} in the model equal to the host tables in all {n} envs; after each of "
+            f"{len(mounts)} steps every camera mount re-posed inside its prism (offset <= {max_off[0]} m per axis, "
+            f"max {worst:.5f}), {n} distinct poses")
 
 
 def dexterity_worker(card: str):
-    """Phase 39 in a process of its own. Returns its seconds."""
+    """Phase 39, then phase 30 (SAC), in a process of their own. Returns
+    their seconds by part."""
     import torch
 
     import maniskill_tpu_torch.envs  # noqa: F401
     from maniskill_tpu_torch import make
 
     torch.set_num_threads(2)  # the CPU port's parity steps, beside the other processes
-    t0 = time.perf_counter()
-    dexterity_state_phase(torch, torch.device("cuda"), make, card)
-    return time.perf_counter() - t0
+    seconds = {}
+    for part, fn in (("39 dexterity", dexterity_state_phase), ("39 arms", arm_state_phase), ("30", sac_phase)):
+        t0 = time.perf_counter()
+        fn(torch, torch.device("cuda"), make, card)
+        seconds[part] = time.perf_counter() - t0
+    return seconds
 
 
 def valve_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
@@ -1675,6 +1792,93 @@ def valve_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths)
     print(f"raster kernel (rotate valve, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
     print(f"rotate valve tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
+          f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
+          f"{inputs[0].shape[1]} {card}")
+    return err
+
+
+def grasp_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 41: SO100GraspCube-v1 rgb+segmentation at 2048 envs through the
+    kernel, the camera re-posed in every env and step, the greenscreen
+    composited over the procedural overlay. Returns the kernel's max depth
+    error against the plain version."""
+    import os
+
+    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+
+    uid, n_envs, n_steps = GRASP_RGB
+    name = f"{uid} rgb+segmentation x{n_envs}"
+    kernel = tr.KERNEL
+    check(not os.path.exists(GRASP_OVERLAY), f"{GRASP_OVERLAY} exists; phase 41 composites the procedural overlay")
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="rgb+segmentation", greenscreen_overlay_path=GRASP_OVERLAY, device=dev)
+    base = env.unwrapped
+    check(base.overlay_sources == {"base_camera": "procedural"}, f"{name}: overlays {base.overlay_sources}")
+    zero = torch.zeros(n_envs, 6, device=dev)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    print(f"{name}: built and warmed up in {time.perf_counter() - t0:.2f} s; the greenscreen path {GRASP_OVERLAY!r} "
+          f"does not exist, so the procedural overlay is composited (overlay_sources {base.overlay_sources})")
+    kernel.launches = 0
+    env.reset(seed=0)
+    step_s = timed_steps(env, zero, n_steps - 1)
+    obs, *_ = env.step(zero)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(launches == 1 + n_steps, f"{name}: kernel launches {launches} != resets + steps {1 + n_steps}")
+    check(int(base.scene.data.contact.overflow.max()) == 0, f"{name}: contact overflow")
+    check(bool(torch.isfinite(obs["agent"]["qpos"]).all() & torch.isfinite(obs["extra"]["dist_to_rest_qpos"]).all()),
+          f"{name}: agent obs not finite")
+    cam_obs = obs["sensor_data"]["base_camera"]
+    rgb, seg = cam_obs["rgb"], cam_obs["segmentation"]
+    check(tuple(rgb.shape) == (n_envs, 128, 128, 3) and rgb.dtype == torch.uint8, f"{name}: rgb {tuple(rgb.shape)}")
+    check(tuple(seg.shape) == (n_envs, 128, 128, 1) and seg.dtype == torch.int16, f"{name}: seg {tuple(seg.shape)}")
+    cam = base._sensors["base_camera"]
+    pose_gap = float((cam.world_pose().raw_pose - base.camera_mount.pose.raw_pose).abs().max())
+    check(pose_gap <= 1e-6, f"{name}: the camera is {pose_gap} off its mount")
+    # the raw frame of the last state (a comparison launch, not the path's)
+    before = kernel.launches
+    raw = cam.get_obs(rgb=True, segmentation=True, hidden_actors=base._hidden_objects)
+    kernel.launches = before
+    check(torch.equal(raw["segmentation"], seg), f"{name}: the segmentation obs differs from the raw frame's")
+    inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, raw["rgb"], name,
+                                        seg=raw["segmentation"])
+    lut, overlay = base._keep_lut, base._rgb_overlay_images["base_camera"][None]
+
+    def composite(frame, ids):
+        return torch.where(lut[torch.clamp(ids.long(), 0, lut.shape[0] - 1)][..., None], frame, overlay)
+
+    check(torch.equal(composite(raw["rgb"], seg[..., 0]), rgb), f"{name}: the composite differs from "
+                                                               f"where(keep[seg], raw rgb, overlay)")
+    _, sp, _, _ = tr.rasterize_tiles_ref(*[a[:16] for a in inputs[:5]], inputs[5], 128, 128)
+    check(torch.equal(composite(raw["rgb"][:16], torch.where(sp >= 0, sp, 0)), rgb[:16]),
+          f"{name}: the composite differs from where(keep[seg], raw rgb, overlay) on the plain version's seg")
+    kept = float(lut[torch.clamp(seg[..., 0].long(), 0, lut.shape[0] - 1)].float().mean())
+    cube_px = (seg[..., 0] == base.cube.per_scene_id).flatten(1).sum(1)
+    robot_ids = torch.tensor([link.per_scene_id for link in base.agent.robot.links], device=dev)
+    robot_px = torch.isin(seg[..., 0], robot_ids).flatten(1).sum(1)
+    check(bool((cube_px > 0).all()), f"{name}: the cube is out of view in {int((cube_px == 0).sum())} envs")
+    check(bool((robot_px > 0).all()), f"{name}: the robot is out of view in {int((robot_px == 0).sum())} envs")
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
+    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
+    frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+    paths[f"so100_graspcube_rgbseg_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                                    bound_by=bound_by, bound_share=bound_ms / k_ms)
+    print(f"{name}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} ms/step, "
+          f"eager, camera jitter on), kernel launches {launches}, the last raw frame of 16 envs re-rendered through "
+          f"the plain version: seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; the composite equal to "
+          f"where(keep[seg], raw rgb, overlay) in every env and on the plain seg ({kept:.4f} of the pixels kept); "
+          f"cube {int(cube_px.min())}-{int(cube_px.max())} px and robot {int(robot_px.min())}-{int(robot_px.max())} "
+          f"px in view in every env; the camera on its mount within {pose_gap:.2g} {card}")
+    print(f"raster kernel (so100 grasp cube, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
+    print(f"so100 grasp cube tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
           f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
           f"{inputs[0].shape[1]} {card}")
     return err
@@ -2473,7 +2677,7 @@ def rlpd_phase(torch, dev, make, card, converted):
 
 
 def side_worker(card: str):
-    """Phases 23, 24, 26 and 30 (state, host-bound) in a process of their
+    """Phases 23, 24 and 26 (state, host-bound) in a process of their
     own. Returns their seconds by phase."""
     import torch
 
@@ -2482,8 +2686,7 @@ def side_worker(card: str):
 
     dev = torch.device("cuda")
     seconds = {}
-    for phase, fn in (("23", two_robot_phase), ("24", locomotion_phase), ("26", cabinet_state_phase),
-                      ("30", sac_phase)):
+    for phase, fn in (("23", two_robot_phase), ("24", locomotion_phase), ("26", cabinet_state_phase)):
         t0 = time.perf_counter()
         fn(torch, dev, make, card)
         seconds[phase] = time.perf_counter() - t0
@@ -3003,7 +3206,8 @@ def main(device: str = "cuda"):
     # ---- phases 14, 16-31 -------------------------------------------------------
     # host-bound state paths overlap, each launching from a process of its
     # own while the card stays mostly idle: phase 16's planner batches (4
-    # processes), phases 23, 24, 26 and 30 (one process) and phases 14, 18,
+    # processes), phases 23, 24 and 26 (one process), phases 39 and 30 (one
+    # process, the two balancing each other's seconds) and phases 14, 18,
     # 20 and 21 here; then TD-MPC2 (its planner is device-bound), the rest of
     # phases 16-17 (the planner CLI alone) and the rgb phases, whose kernel
     # times are taken, with the card to this process alone
@@ -3026,8 +3230,9 @@ def main(device: str = "cuda"):
     finally:
         side_pool.shutdown(wait=True, cancel_futures=True)
         planner[0].shutdown(wait=True, cancel_futures=True)  # its results stay with its futures
-    stamp("phases 23, 24, 26, 30 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in side_s.items())
-          + f" in their process) and 39 ({dex_s:.1f} s in its process)")
+    stamp("phases 23, 24, 26 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in side_s.items())
+          + " in their process) and 39, 30 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in dex_s.items())
+          + " in theirs)")
     tdmpc2_phase(torch, dev, make, card)
     stamp("phase 31")
     max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, planner))
@@ -3043,6 +3248,8 @@ def main(device: str = "cuda"):
     stamp("phase 27")
     max_err = max(max_err, valve_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 40")
+    max_err = max(max_err, grasp_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 41")
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
     stamp("phase 28")
     max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))

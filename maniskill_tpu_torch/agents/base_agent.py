@@ -3,9 +3,10 @@
 An agent owns one Articulation plus a registry of controller configs keyed by
 control mode. A robot is defined by a ``urdf_path`` (loaded by
 ``building/urdf_loader.py`` from the port's own ``assets/robots/``) or by a
-procedural ``build_description()`` (a LinkSpec list); the MJCF loader is not
-ported yet. ``MultiAgent`` drives several robots of one scene with dict
-actions keyed by agent name.
+procedural ``build_description()`` (a LinkSpec list), as in the JAX
+package, whose ``mjcf_path`` no robot sets (``scene.create_mjcf_loader()``
+loads MJCF files). ``MultiAgent`` drives several robots of one scene with
+dict actions keyed by agent name.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from .pd_ee_pose import (
     PDEEPoseControllerConfig,
 )
 from .pd_joint_vel import PDJointVelController, PDJointVelControllerConfig
+from .pd_joint_pos_vel import PDJointPosVelController, PDJointPosVelControllerConfig
 from .pd_base_vel import (
     PDBaseForwardVelController,
     PDBaseForwardVelControllerConfig,
@@ -33,6 +34,7 @@ __all__ = [
     "PDEEPosController", "PDEEPosControllerConfig",
     "PDEEPoseController", "PDEEPoseControllerConfig",
     "PDJointVelController", "PDJointVelControllerConfig",
+    "PDJointPosVelController", "PDJointPosVelControllerConfig",
     "PDBaseVelController", "PDBaseVelControllerConfig",
     "PDBaseForwardVelController", "PDBaseForwardVelControllerConfig",
 ]

@@ -1,0 +1,87 @@
+"""xArm6 with a Robotiq 2F-85 (counterpart of
+maniskill_tpu/agents/robots/xarm6/xarm6_robotiq.py), loaded from the port's
+copy of the compact URDF: the gripper is two mimic-coupled prismatic pads."""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .... import PACKAGE_ASSET_DIR
+from ....utils import common
+from ....utils.geometry.rotation_conversions import quaternion_apply
+from ...base_agent import BaseAgent, Keyframe
+from ...controllers import (
+    PDEEPosControllerConfig,
+    PDEEPoseControllerConfig,
+    PDJointPosControllerConfig,
+    PDJointPosMimicControllerConfig,
+)
+from ...registration import register_agent
+
+ARM_JOINT_NAMES = [f"joint{i}" for i in range(1, 7)]
+GRIPPER_JOINT_NAMES = ["robotiq_2f_85_left_driver_joint", "robotiq_2f_85_right_driver_joint"]
+
+
+@register_agent()
+class XArm6Robotiq(BaseAgent):
+    uid = "xarm6_robotiq"
+    urdf_path = os.path.join(PACKAGE_ASSET_DIR, "robots", "xarm6", "xarm6_robotiq.urdf")
+    fix_root_link = True
+    disable_self_collisions = True
+
+    keyframes = dict(rest=Keyframe(qpos=np.array([0, 0.22, -1.23, 0, 1.01, 0, 0.0, 0.0]),
+                                   pose=np.array([0, 0, 0, 1, 0, 0, 0])))
+
+    arm_stiffness = 1e3
+    arm_damping = 1e2
+    arm_force_limit = 100
+    gripper_stiffness = 1e3
+    gripper_damping = 1e2
+    gripper_force_limit = 60
+
+    @property
+    def _controller_configs(self):
+        arm_common = dict(joint_names=ARM_JOINT_NAMES, stiffness=self.arm_stiffness, damping=self.arm_damping,
+                          force_limit=self.arm_force_limit)
+        pd_joint_pos = PDJointPosControllerConfig(**arm_common, lower=None, upper=None, normalize_action=False)
+        pd_joint_delta_pos = PDJointPosControllerConfig(**arm_common, lower=-0.1, upper=0.1, use_delta=True)
+        pd_ee_delta_pos = PDEEPosControllerConfig(**arm_common, pos_lower=-0.1, pos_upper=0.1,
+                                                  ee_link="grasp_convenient_link", use_delta=True)
+        pd_ee_delta_pose = PDEEPoseControllerConfig(**arm_common, pos_lower=-0.1, pos_upper=0.1, rot_lower=-0.1,
+                                                    rot_upper=0.1, ee_link="grasp_convenient_link", use_delta=True)
+        gripper = PDJointPosMimicControllerConfig(
+            joint_names=GRIPPER_JOINT_NAMES, lower=0.0, upper=0.0425, stiffness=self.gripper_stiffness,
+            damping=self.gripper_damping, force_limit=self.gripper_force_limit,
+        )
+        return dict(
+            pd_joint_delta_pos=dict(arm=pd_joint_delta_pos, gripper=gripper),
+            pd_joint_pos=dict(arm=pd_joint_pos, gripper=gripper),
+            pd_ee_delta_pos=dict(arm=pd_ee_delta_pos, gripper=gripper),
+            pd_ee_delta_pose=dict(arm=pd_ee_delta_pose, gripper=gripper),
+        )
+
+    def _after_init(self):
+        self.tcp = self.robot.links_map["grasp_convenient_link"]
+        self.finger1_link = self.robot.links_map["left_pad"]
+        self.finger2_link = self.robot.links_map["right_pad"]
+        self._close_dir1 = torch.tensor([0.0, -1.0, 0.0], device=self.scene.device)
+        self._close_dir2 = torch.tensor([0.0, 1.0, 0.0], device=self.scene.device)
+
+    @property
+    def tcp_pose(self):
+        return self.tcp.pose
+
+    def is_grasping(self, object, min_force=0.5, max_angle=85.0):
+        l_forces = self.scene.get_pairwise_contact_forces(self.finger1_link, object)
+        r_forces = self.scene.get_pairwise_contact_forces(self.finger2_link, object)
+        lforce = torch.linalg.vector_norm(l_forces, dim=-1)
+        rforce = torch.linalg.vector_norm(r_forces, dim=-1)
+        langle = common.compute_angle_between(quaternion_apply(self.finger1_link.pose.q, self._close_dir1), l_forces)
+        rangle = common.compute_angle_between(quaternion_apply(self.finger2_link.pose.q, self._close_dir2), r_forces)
+        return ((lforce >= min_force) & (torch.rad2deg(langle) <= max_angle)
+                & (rforce >= min_force) & (torch.rad2deg(rangle) <= max_angle))
+
+    def is_static(self, threshold: float = 0.2):
+        return torch.amax(torch.abs(self.robot.qvel[..., :-2]), 1) <= threshold

@@ -202,6 +202,10 @@ class BaseEnv:
     def _load_scene(self, options: dict):
         pass
 
+    def _before_control_step(self):
+        """Task hook run at the top of each control step, before the action
+        is applied (a digital twin re-poses its camera mount here)."""
+
     def _after_reconfigure(self, options: dict):
         """Task hook run after the model is built, before the render meshes:
         per-env tables (hulls, masses) are written here."""
@@ -359,6 +363,7 @@ class BaseEnv:
         (obs, reward, terminated, info). Elapsed steps are the caller's."""
         scene = self.scene
         scene._reset_mask = None
+        self._before_control_step()
         self.agent.set_action(action)
         model = scene.model
         d = scene.data

@@ -60,6 +60,11 @@ class ManiSkillScene:
 
         return URDFLoader(self)
 
+    def create_mjcf_loader(self):
+        from ..building.mjcf_loader import MJCFLoader
+
+        return MJCFLoader(self)
+
     def register_actor(self, actor: Actor):
         if actor.name in self.actors:
             raise ValueError(f"duplicate actor name {actor.name!r}")
@@ -262,6 +267,17 @@ class ManiSkillScene:
         hv_t[:, hids_t] = torch.as_tensor(hulls_np, device=self.device)
         hd_t[:, hids_t] = torch.as_tensor(dirs, dtype=torch.float32, device=self.device)
         self.model = self.model.replace(hull_verts=hv_t, hull_dirs=hd_t)
+
+    def set_per_env_friction(self, actor, friction):
+        """friction: (B,) host array, one value for all of the actor's geoms
+        in each env, or (B, K) for its K geoms."""
+        gids = torch.as_tensor(np.asarray(actor.geom_ids, np.int64), device=self.device)
+        f = torch.as_tensor(np.asarray(friction, np.float32), device=self.device)
+        if f.ndim == 1:
+            f = f[:, None].expand(self.num_envs, len(gids))
+        gf = self._per_env(self.model.geom_friction, 1)
+        gf[:, gids] = f
+        self.model = self.model.replace(geom_friction=gf)
 
     def set_per_env_body_mass(self, actor, mass):
         """mass: (B,) host array, one body's mass in each env."""

@@ -1,0 +1,4 @@
+"""Digital-twin (real2sim evaluation) tasks (counterpart of
+maniskill_tpu/envs/tasks/digital_twins/)."""
+from .base_env import BaseDigitalTwinEnv  # noqa: F401
+from . import so100_arm  # noqa: F401

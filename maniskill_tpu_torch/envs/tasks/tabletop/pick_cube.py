@@ -136,3 +136,34 @@ class PickCubeEnv(BaseEnv):
 
     def compute_normalized_dense_reward(self, obs, action, info):
         return self.compute_dense_reward(obs=obs, action=action, info=info) / 5
+
+
+@register_env("PickCubeSO100-v1", max_episode_steps=50)
+class PickCubeSO100Env(PickCubeEnv):
+    """PickCube with the SO100 arm, its base at x = -0.4. The static reward
+    still slices off the last two joints (``compute_dense_reward``), as the
+    reference does for every robot: for the SO100 that also drops its last
+    arm joint."""
+
+    SUPPORTED_ROBOTS = ["so100"]
+
+    def __init__(self, *args, **kwargs):
+        kwargs.pop("robot_uids", None)
+        super().__init__(*args, robot_uids="so100", **kwargs)
+
+    def _load_agent(self, options: dict):
+        BaseEnv._load_agent(self, options, np.array([-0.4, 0, 0, 1, 0, 0, 0]))
+
+
+@register_env("PickCubeWidowXAI-v1", max_episode_steps=50)
+class PickCubeWidowXAIEnv(PickCubeEnv):
+    """PickCube with the WidowX AI arm, its base at x = -0.45."""
+
+    SUPPORTED_ROBOTS = ["widowxai"]
+
+    def __init__(self, *args, **kwargs):
+        kwargs.pop("robot_uids", None)
+        super().__init__(*args, robot_uids="widowxai", **kwargs)
+
+    def _load_agent(self, options: dict):
+        BaseEnv._load_agent(self, options, np.array([-0.45, 0, 0, 1, 0, 0, 0]))

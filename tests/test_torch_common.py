@@ -7,6 +7,8 @@ files import them), and a check of the f32 solver switch they rely on.
   inside ``make`` with seeded uniform actions and keeps what the port is held
   to; ``port_rollout`` starts the port's env from that state and takes the
   same actions (the locomotion parity files).
+- ``assert_steps_match`` starts the port's env from a JAX env's state and
+  holds it to the JAX env step by step (obs, qpos, reward, info, overflow).
 - ``assert_obs_close`` holds the port's obs tree to the JAX package's;
   ``assert_models_equal`` holds the port's ``Model`` to the JAX package's
   (candidate pairs, topology, per-env tables); ``numpy_fields`` reads a JAX
@@ -254,6 +256,39 @@ def assert_tree_close(tobs, jobs, atol, what):
         return
     np.testing.assert_allclose(tobs.numpy().astype(np.float32), np.asarray(jobs, np.float32), rtol=0, atol=atol,
                                err_msg=what)
+
+
+def assert_steps_match(je, te, actions, obs_tol, qpos_tol, what):
+    """The port's env ``te``, reset to the JAX env ``je``'s state after the
+    reset inside ``make``, and ``je`` take the same ``actions`` (numpy, one
+    per step); after each step: obs within ``obs_tol``, qpos within
+    ``qpos_tol``, reward within ``obs_tol``, every info entry equal (a float
+    one within ``obs_tol``), terminated equal and ``contact.overflow == 0``
+    on both sides. Returns the last step's (port obs, JAX obs)."""
+    jb, tb = je.unwrapped, te.unwrapped
+    state = tree(jb.get_state_dict(), np.array)
+    obs0, _ = te.reset(seed=3, options=dict(reset_to_env_states=tree(state, torch.as_tensor)))
+    assert_tree_close(obs0, tree(jb._init_raw_obs, np.asarray), 1e-6, f"{what} reset")
+    n = jb.num_envs
+    for i, action in enumerate(actions):
+        jobs, jrew, jterm, _, jinfo = je.step(action)
+        obs, rew, term, _, info = te.step(torch.as_tensor(action))
+        step = f"{what} step {i + 1}"
+        assert_tree_close(obs, tree(jobs, np.asarray), obs_tol, step)
+        np.testing.assert_allclose(tb.scene.data.qpos.numpy(), np.asarray(jb.scene.data.qpos), rtol=0,
+                                   atol=qpos_tol, err_msg=f"{step} qpos")
+        np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), rtol=0, atol=obs_tol, err_msg=f"{step} reward")
+        np.testing.assert_array_equal(term.numpy(), np.asarray(jterm), err_msg=f"{step} terminated")
+        assert sorted(info) == sorted(jinfo), (step, sorted(info), sorted(jinfo))
+        for k, jv in jinfo.items():
+            jv, tv = np.asarray(jv), info[k].numpy()
+            if jv.dtype.kind == "f":
+                np.testing.assert_allclose(tv, jv, rtol=0, atol=obs_tol, err_msg=f"{step} info {k}")
+            else:
+                np.testing.assert_array_equal(tv, jv, err_msg=f"{step} info {k}")
+        assert tb.scene.data.contact.overflow.tolist() == [0] * n, step
+        assert np.asarray(jb.scene.data.contact.overflow).tolist() == [0] * n, step
+    return obs, jobs
 
 
 @contextlib.contextmanager

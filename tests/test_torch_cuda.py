@@ -380,3 +380,45 @@ def test_rotate_valve_rgb_through_the_kernel(cuda):
     valve = {link.per_scene_id for link in base.valve.links}
     seen = torch.isin(sp, torch.tensor(sorted(valve), device=cuda)).sum((1, 2))
     assert (seen > 50).all(), seen
+
+
+def test_so100_grasp_cube_greenscreen_through_the_kernel(cuda):
+    """SO100GraspCube-v1 rgb+segmentation (camera jitter on, the procedural
+    overlay) at 16 envs: the kernel runs once per frame; the last frame
+    re-rendered through the plain version gives the segmentation obs, and
+    the composite equals where(keep[seg], plain rgb, overlay); the cube and
+    the robot are in view in every env."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    n = 16
+    env = make("SO100GraspCube-v1", num_envs=n, obs_mode="rgb+segmentation", device=cuda,
+               greenscreen_overlay_path="/nonexistent/greenscreen.png")
+    base = env.unwrapped
+    assert base.overlay_sources == {"base_camera": "procedural"}
+    launches = tr.KERNEL.launches
+    env.reset(seed=0)
+    for _ in range(2):
+        obs, *_ = env.step(torch.zeros(n, 6, device=cuda))
+    assert tr.KERNEL.launches == launches + 3
+    cam_obs = obs["sensor_data"]["base_camera"]
+    rgb, seg = cam_obs["rgb"], cam_obs["segmentation"]
+    assert rgb.shape == (n, 128, 128, 3) and rgb.dtype == torch.uint8 and rgb.is_cuda
+    cam = base._sensors["base_camera"]
+    mesh = cam._get_mesh(tuple(base._hidden_objects))
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj,
+                          128, 128, lights=base.scene.lights)
+    _, sp, rp, dp = tr.rasterize_tiles_ref(*inputs, 128, 128)
+    assert int(dp) == 0
+    plain_seg = torch.where(sp >= 0, sp, 0)
+    assert torch.equal(plain_seg.to(torch.int16), seg[..., 0])
+    raw = (torch.clamp(rp, 0, 1) * 255).to(torch.uint8)
+    keep = base._keep_lut[plain_seg.long()][..., None]
+    assert torch.equal(torch.where(keep, raw, base._rgb_overlay_images["base_camera"][None]), rgb)
+    for ids in ([base.cube.per_scene_id], [link.per_scene_id for link in base.agent.robot.links]):
+        seen = torch.isin(sp, torch.tensor(ids, device=cuda)).sum((1, 2))
+        assert (seen > 0).all(), seen

@@ -12,7 +12,7 @@
   and a box fitted by the native cooking library's ``fit_capsule`` and
   ``fit_obb``), the same meshes decomposed into convex hulls, and a visual
   mesh, equal to 1e-9 between the packages.
-- The twelve URDFs the port loads are byte-equal copies of the JAX
+- The nineteen URDFs the port loads are byte-equal copies of the JAX
   package's, and every URDF under the port's assets is one of them.
 - A process that blocks jax, flax, gymnasium, lxml and maniskill_tpu loads
   every URDF robot of the port, steps AnymalC-Reach-v1 and
@@ -42,7 +42,9 @@ PORT_URDFS = ["anymal_c/anymal_c.urdf", "unitree_go2/go2_description.urdf", "uni
               "unitree_g1/g1_simplified.urdf", "trifinger/trifingerpro.urdf",
               "ability_hand/ability_hand_right_floating.urdf", "inspire_hand/inspire_hand_left.urdf",
               "inspire_hand/inspire_hand_left_floating.urdf", "inspire_hand/inspire_hand_right.urdf",
-              "inspire_hand/inspire_hand_right_floating.urdf", "xarm7/xarm7.urdf", "xarm7/xarm7_ability.urdf"]
+              "inspire_hand/inspire_hand_right_floating.urdf", "xarm7/xarm7.urdf", "xarm7/xarm7_ability.urdf",
+              "widowxai/widowxai.urdf", "xarm6/xarm6_nogripper.urdf", "xarm6/xarm6_robotiq.urdf",
+              "ur_10e/ur10e.urdf", "koch/koch.urdf", "googlerobot/googlerobot.urdf", "stompy/stompy.urdf"]
 LINK_FIELDS = ("name", "parent", "joint_type", "joint_name", "origin_pos", "origin_quat", "axis", "limit",
                "damping", "stiffness", "springref", "armature", "frictionloss", "mass", "com", "inertia", "iquat")
 SHAPE_FIELDS = ("type", "size", "pos", "quat", "friction", "density", "color", "hull", "hull_dirs")
@@ -193,8 +195,9 @@ def test_import_and_step_without_jax_or_lxml():
     maniskill_tpu: a process that blocks them loads every URDF robot of the
     port, steps AnymalC-Reach-v1 on the CPU, and opens no file under
     maniskill_tpu/ (an audit hook records every file it opens); it makes
-    and steps RotateValveLevel0-v1 too, and builds the URDF robots this
-    slice adds in Empty-v1."""
+    and steps RotateValveLevel0-v1 too, builds the dexterity slice's and
+    the arm slice's URDF robots in Empty-v1, steps SO100GraspCube-v1 and
+    imports the MJCF loader."""
     code = textwrap.dedent('''
         import os
         import sys
@@ -228,9 +231,16 @@ def test_import_and_step_without_jax_or_lxml():
             assert env.single_action_space.shape == (n_act,), (uid, env.single_action_space)
         for robot, n_act in (("floating_ability_hand_right", 12), ("floating_inspire_hand_right", 14),
                              ("floating_inspire_hand_left", 14), ("fixed_inspire_hand_right", 8),
-                             ("fixed_inspire_hand_left", 8), ("xarm7", 8), ("xarm7_ability", 13)):
+                             ("fixed_inspire_hand_left", 8), ("xarm7", 8), ("xarm7_ability", 13),
+                             ("widowxai", 7), ("xarm6_nogripper", 6), ("xarm6_robotiq", 7), ("ur_10e", 6),
+                             ("koch-v1.1", 6), ("googlerobot", 10), ("stompy", 35)):
             env = make("Empty-v1", num_envs=2, robot_uids=robot, device="cpu")
             assert env.single_action_space.shape == (n_act,), (robot, env.single_action_space)
+        from maniskill_tpu_torch.building import mjcf_loader  # noqa: F401
+        env = make("SO100GraspCube-v1", num_envs=2, obs_mode="state", device="cpu")
+        env.reset(seed=0)
+        obs, rew, *_ = env.step(np.zeros((2, 6), np.float32))
+        assert bool(obs.isfinite().all()) and bool(rew.isfinite().all())
         env = make("RotateValveLevel0-v1", num_envs=2, obs_mode="state", device="cpu")
         env.reset(seed=0)
         for _ in range(2):
