@@ -9,7 +9,8 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
   1. card name and power limit (nvidia-smi), torch version; CUDA required.
   2. build the tiled-rasterizer CUDA kernel from csrc/ for sm_90a.
   3. kernel vs its plain torch version on random face sets made with numpy:
-     1/z bit-equal, seg and rgb equal on every pixel, dropped equal.
+     1/z bit-equal, seg and rgb equal on every pixel, dropped equal (0); one
+     set packs a band's list past 1,024 entries, which is walked whole.
   4. CartpoleBalanceBenchmark-v1 (1024 envs, one 128x128 RGB camera,
      pd_joint_delta_pos), reset, 50 zero-action steps; rgb shape and content,
      finite state, kernel launches == resets + steps, dropped == 0, and the
@@ -223,7 +224,9 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      env-steps/s, one learning train step profiled (0 stream/event syncs, 0
      host-to-device copies), a curriculum reset on the card restoring its
      demo's state within 1e-5; then 5 steps of the SB3 adapter
-     (vector/sb3.py) at 256 envs, one profiled: one device-to-host copy.
+     (vector/sb3.py) at 256 envs, then 3 profiled: one device-to-host copy
+     per step, the most any of them reads (the profiler loses device
+     records now and then, and never adds one).
  39. The dexterity family and the taskless robots, state, zero actions, in
      a process of its own (phase 30 runs in it after them) beside phases
      14, 18, 20, 21 and the process of 23, 24 and 26:
@@ -267,6 +270,31 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      and in the first 16 from the plain version's seg; the cube and the
      robot in view in every env; the camera on its mount in every env;
      faces per band and the kernel's ms per frame against its bound.
+ 42. Slice 14 in state mode, in a process of its own (phase 44 runs in it
+     after) beside phases 32-34 and their processes: TableTopFreeDraw,
+     DrawTriangle and DrawSVG with all their 256, 300 and 500 ink dots,
+     FMBAssembly1Easy, UnitreeG1PlaceAppleInBowl and UnitreeG1TransportBox
+     at 4096 envs (make time, 10 timed zero-action steps, one profiled step
+     with its launches, 0 stream/event syncs and 0 host-to-device copies,
+     overflow 0, obs and reward finite in every step); DrawTriangle then
+     takes 10 steps of an action that lays the tip on the canvas: draw_step
+     advances by one per step, every written dot row is the tip's xy where
+     it touches and the parked pose elsewhere, every env draws; the dots
+     drawn and the reference points hit are printed. The first 16 envs of
+     each task from one state on the card and in the port on the CPU, 2
+     zero-action steps: qpos within 1e-5.
+ 43. DrawTriangle-v1 rgb, 512 envs, its own 320x240 camera and all 300 ink
+     dots (the undrawn ones piled at one pose, thousands of faces in one
+     band): reset + 10 steps; kernel launches == resets + steps, 0 host
+     syncs in the steps, dropped == 0; the fullest band's count; the last
+     frame of 16 envs re-rendered through the plain version (1/z bit-equal,
+     seg and rgb equal) and of 4 envs through an unbinned per-face walk over
+     the whole frame (seg equal on every pixel); the kernel's ms per frame
+     against its bound with every live list entry counted.
+ 44. The planner's DrawTriangle solution at 256 envs from one reset, after
+     phase 42 in its process: the solved share (the JAX package has no rate
+     for it, so none is required), control steps, moves, one host sync per
+     move, wall time.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -281,10 +309,10 @@ after phase 15, phase 16's planner batches (4 processes), phases 23, 24
 and 26 (one process) and phases 39 and 30 (one process) run beside phases
 14, 18, 20 and 21; then TD-MPC2
 (phase 31, whose planner is device-bound), the rest of 16-17 (the planner
-CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41 with 28 and 29,
-whose kernel times are taken, with the card to this process alone; in
-phases 32-34 the two per-episode replays and phases 35-38 run in processes
-of their own. A rate or a device time taken beside other processes says so
+CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41, 43 with 28
+and 29, whose kernel times are taken, with the card to this process alone;
+in phases 32-34 the two per-episode replays, phases 35-38 and phases 42
+and 44 run in processes of their own. A rate or a device time taken beside other processes says so
 where it is printed: the card time-slices between the processes' contexts,
 so device times read there run long.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -470,7 +498,8 @@ REPLAY_EPISODES = 4
 STATE_RESTORE_TOL = 1e-5
 BC_EPOCHS = 5
 RLPD_CELL = ("PickCube-v1", 1, 3)
-SHARED = " (sharing the card with phase 33's two per-episode replays and phases 35-38's processes)"
+SHARED = (" (sharing the card with phase 33's two per-episode replays, phases 35-38's processes and the process of "
+          "phases 42 and 44)")
 # phases 14, 16, 18, 20, 21, 23, 24, 26, 30 and 39 overlap in processes of
 # their own: each of these host-bound paths launches its kernels from its own
 # process while the card stays mostly idle
@@ -490,7 +519,8 @@ IL_ENV = "PickCube-v1"
 RFCL_CELL = ("PickCube-v1", 256, 1, 3)
 RFCL_DEMOS = "demos/PickCube-v1/mp_PickCube-v1.h5"
 SB3_STEPS = 5
-TRAINER_SHARED = " (in a process of its own beside phases 32-34)"
+SB3_PROFILES = 3
+TRAINER_SHARED = " (in a process of its own beside phases 32-34 and the process of phases 42 and 44)"
 # phase 39: the dexterity family, state, zero actions: the four timed tasks
 # (env, action width) at DEX_ENVS, the other levels at DEX_LEVEL_ENVS, and
 # Empty-v1 with each robot no task uses (random actions)
@@ -533,6 +563,24 @@ GRASP_OVERLAY = "no_such_dir/so100_greenscreen.png"
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (an FMA counts two)
 STATE_CKPT, STATE_SUCCESS_MIN = "examples_checkpoints/ppo_pickcube_state.pkl", 0.85
 RGB_CKPT, RGB_SUCCESS_MIN = "examples_checkpoints/ppo_pushcube_rgb.pkl", 0.80
+# phase 42, slice 14 in state mode: (env, action width) at SLICE14_ENVS,
+# SLICE14_STEPS timed zero-action steps each; the card's first DEX_CPU_ENVS
+# envs against the port on the CPU from one state, DEX_CPU_STEPS steps, qpos
+# within SLICE14_QPOS_TOL
+SLICE14_STATE = (("TableTopFreeDraw-v1", 7), ("DrawTriangle-v1", 7), ("DrawSVG-v1", 7), ("FMBAssembly1Easy-v1", 8),
+                 ("UnitreeG1PlaceAppleInBowl-v1", 25), ("UnitreeG1TransportBox-v1", 25))
+SLICE14_ENVS, SLICE14_STEPS, SLICE14_QPOS_TOL = 4096, 10, 1e-5
+# DrawTriangle's pd_joint_delta_pos action that pitches the shoulder forward
+# and lays the stick's tip on the canvas within ~7 steps, DRAW_STEPS steps
+DRAW_ACTION, DRAW_STEPS = (0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0), 10
+SLICE14_SHARED = " (in a process of its own beside phases 32-34 and their processes)"
+# phase 43: DrawTriangle rgb through the kernel, its own 320x240 camera and
+# every ink dot (the undrawn ones piled in one or two bands); the last frame
+# of DRAW_DENSE_ENVS envs through an unbinned per-face walk
+DRAW_RGB = ("DrawTriangle-v1", 512, 10)
+DRAW_DENSE_ENVS = 4
+# phase 44: the planner's DrawTriangle solution from one reset
+DRAW_PLANNER = ("DrawTriangle-v1", 256)
 SEG_AGREE_MIN = 0.999  # re-render seg agreement bound (the kernel is bit-exact: expect 1.0)
 CUBE_WEIGHT = 0.064 * 9.81  # PickCube's 4 cm cube of density 1000, in N
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 instructions/s
@@ -1535,13 +1583,14 @@ def anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths
     return err
 
 
-def dexterity_cpu_parity(torch, dev, make, uid, state, card, control_mode="pd_joint_delta_pos", mount=False):
+def dexterity_cpu_parity(torch, dev, make, uid, state, card, control_mode="pd_joint_delta_pos", mount=False,
+                         qpos_tol=DEX_CPU_QPOS_TOL):
     """The first DEX_CPU_ENVS envs of ``state`` on the card and in the port
     on the CPU: fresh envs of that width reset to it (both solvers start
-    cold) take DEX_CPU_STEPS zero-action steps; qpos within
-    DEX_CPU_QPOS_TOL and obs within DEX_CPU_OBS_TOL, and with ``mount`` the
-    camera mount's pose (handed over with the state) within
-    DEX_CPU_QPOS_TOL. Returns (qpos gap, obs gap)."""
+    cold) take DEX_CPU_STEPS zero-action steps; qpos within ``qpos_tol``
+    and obs within DEX_CPU_OBS_TOL, and with ``mount`` the camera mount's
+    pose (handed over with the state) within ``qpos_tol``. Returns (qpos
+    gap, obs gap)."""
     m = DEX_CPU_ENVS
     out = []
     for d in (dev, torch.device("cpu")):
@@ -1555,13 +1604,13 @@ def dexterity_cpu_parity(torch, dev, make, uid, state, card, control_mode="pd_jo
         del env, base
     gaps = [float((a - b).abs().max()) for a, b in zip(*out)] + [0.0]
     q_gap, o_gap, m_gap = gaps[:3]
-    check(q_gap <= DEX_CPU_QPOS_TOL and o_gap <= DEX_CPU_OBS_TOL and m_gap <= DEX_CPU_QPOS_TOL,
+    check(q_gap <= qpos_tol and o_gap <= DEX_CPU_OBS_TOL and m_gap <= qpos_tol,
           f"{uid}: the card's first {m} envs part from the CPU's after {DEX_CPU_STEPS} steps by {q_gap:.3g} "
-          f"(qpos, tolerance {DEX_CPU_QPOS_TOL}), {o_gap:.3g} (obs, tolerance {DEX_CPU_OBS_TOL}), {m_gap:.3g} "
+          f"(qpos, tolerance {qpos_tol}), {o_gap:.3g} (obs, tolerance {DEX_CPU_OBS_TOL}), {m_gap:.3g} "
           f"(camera mount)")
     mounted = f", the camera mount's pose within {m_gap:.3g}" if mount else ""
     print(f"  {uid}: the card's first {m} envs and the CPU port from one state, {DEX_CPU_STEPS} zero-action "
-          f"steps: qpos within {q_gap:.3g} (tolerance {DEX_CPU_QPOS_TOL}), obs within {o_gap:.3g} (tolerance "
+          f"steps: qpos within {q_gap:.3g} (tolerance {qpos_tol}), obs within {o_gap:.3g} (tolerance "
           f"{DEX_CPU_OBS_TOL}){mounted} {card}")
     return q_gap, o_gap
 
@@ -1882,6 +1931,209 @@ def grasp_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths)
           f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
           f"{inputs[0].shape[1]} {card}")
     return err
+
+
+def draw_check(torch, dev, env, n_act):
+    """DrawTriangle: DRAW_STEPS steps of DRAW_ACTION from a reset. Each step
+    advances ``draw_step`` by one and writes the env's dot row min(step,
+    MAX_DOTS - 1): the tip's xy on the canvas where it touches, the parked
+    pose elsewhere; every env draws. Returns the summary."""
+    base = env.unwrapped
+    n = base.num_envs
+    action = torch.tensor(DRAW_ACTION, device=dev).expand(n, n_act)
+    env.reset(seed=1)
+    rows = torch.arange(n, device=dev)
+    ok, touched = [], []
+    for _ in range(DRAW_STEPS):
+        step0 = base.scene.data.extras["draw_step"].clone()
+        env.step(action)
+        d = base.scene.data
+        tcp = base.agent.tcp_pose.p
+        touching = base._touching(tcp)
+        row = d.mocap_pose[rows, base._dot_m0 + torch.clamp(step0, max=base.MAX_DOTS - 1).long()]
+        drawn = torch.cat([tcp[:, :2], torch.full_like(tcp[:, :1], base.DOT_THICKNESS / 2 + base.CANVAS_THICKNESS),
+                           base._dot_hidden[3:].expand(n, 4)], -1)
+        want = torch.where(touching[:, None], drawn, base._dot_hidden)
+        ok.append((d.extras["draw_step"] == step0 + 1).all() & (row == want).all())
+        touched.append(touching)
+    check(bool(torch.stack(ok).all()), "DrawTriangle: draw_step did not advance by one, or a dot row is not the "
+                                       "tip's xy (touching) or the parked pose")
+    dots = (base.scene.data.mocap_pose[:, base._dot_m0:base._dot_m0 + base.MAX_DOTS, 2] > 0).sum(1)
+    hits = base.scene.data.extras["ref_hit"].sum(1)
+    check(bool((dots > 0).all()), f"DrawTriangle: the tip drew no dot in {int((dots == 0).sum())} envs")
+    touching_steps = torch.stack(touched).float().mean(1)
+    return (f"{DRAW_STEPS} steps of the drawing action {DRAW_ACTION}: draw_step advanced by one per step and every "
+            f"written dot row is the tip's xy where it touches the canvas (share of envs touching per step: "
+            f"{', '.join(f'{float(x):.3f}' for x in touching_steps)}), the parked pose elsewhere; dots drawn per env "
+            f"{int(dots.min())}-{int(dots.max())}, reference points hit per env {int(hits.min())}-{int(hits.max())} "
+            f"(mean {float(hits.float().mean()):.2f}) of {base.scene.data.extras['ref_hit'].shape[1]}")
+
+
+def slice14_state_phase(torch, dev, make, card):
+    """Phase 42: the drawing, FMB and G1 tasks at SLICE14_ENVS in state mode
+    (the drawing tasks with all their ink dots), each with its step profile
+    and its first envs against the CPU port; DrawTriangle also draws."""
+    n = SLICE14_ENVS
+    for uid, n_act in SLICE14_STATE:
+        rec = []
+
+        def after(base, i, out):
+            if i >= 0:
+                rec.append(torch.isfinite(out[0]).all() & torch.isfinite(out[1]).all()
+                           & (base.scene.data.contact.overflow == 0).all())
+
+        env = state_cell(torch, dev, make, card, uid, n, SLICE14_STEPS, torch.zeros(n, n_act, device=dev),
+                         after=after)
+        base = env.unwrapped
+        check(bool(torch.stack(rec).all()), f"{uid}: obs or reward not finite, or a contact overflow, in a step")
+        line = f"  {uid}: obs and rewards finite and contact.overflow 0 in every env and step"
+        if hasattr(base, "MAX_DOTS"):
+            line += f"; {base.MAX_DOTS} ink dots per env (mocap rows)"
+        if uid == "DrawTriangle-v1":
+            line += "; " + draw_check(torch, dev, env, n_act)
+        print(line)
+        dexterity_cpu_parity(torch, dev, make, uid, base.get_state_dict(), card, qpos_tol=SLICE14_QPOS_TOL)
+        del env, base
+
+
+def slice14_worker(card: str):
+    """Phases 42 and 44 in a process of their own. Returns their seconds."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    torch.set_num_threads(2)  # the CPU port's parity steps, beside the other processes
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    slice14_state_phase(torch, dev, make, card)
+    seconds = {"42": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    uid, n_envs = DRAW_PLANNER
+    # the JAX package never ran this solution to a rate, so no share is required
+    planner_run(torch, dev, make, card, uid, n_envs, "state", seed=0)
+    seconds["44"] = time.perf_counter() - t0
+    return seconds
+
+
+def dense_walk(torch, table, height: int, width: int, chunk: int = 64):
+    """The kernel's semantics without bands: per pixel of the whole frame,
+    every face in id order, a face winning where it covers the pixel with a
+    1/z strictly greater than the best so far (from 0). Returns (iz, seg)."""
+    B, F, _ = table.shape
+    dev = table.device
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, None, None, :]
+    py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[None, None, :, None]
+    iz = torch.zeros(B, height, width, device=dev)
+    seg = torch.full((B, height, width), -1, dtype=torch.int32, device=dev)
+    for j0 in range(0, F, chunk):
+        rec = table[:, j0:j0 + chunk]
+        c = [rec[..., k][..., None, None] for k in range(13)]
+        cover = ((c[0] * px + c[1] * py + c[2] >= 0) & (c[3] * px + c[4] * py + c[5] >= 0)
+                 & (c[6] * px + c[7] * py + c[8] >= 0))
+        z = c[9] * px + c[10] * py + c[11]
+        cand = cover & (z > 0)
+        v = torch.where(cand, z, float("-inf"))
+        vmax = v.amax(1)
+        first = torch.argmax((cand & (v == vmax[:, None])).to(torch.int32), 1)
+        better = vmax > iz
+        iz = torch.where(better, vmax, iz)
+        seg = torch.where(better, torch.gather(rec[..., 12], 1, first.flatten(1)).view_as(seg).to(torch.int32), seg)
+    return iz, seg
+
+
+def draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 43: DrawTriangle rgb at its own 320x240 camera through the
+    kernel, every ink dot in the scene. Returns the kernel's max depth error
+    against the plain version."""
+    import warnings
+
+    from maniskill_tpu_torch.utils.timing import cuda_ms
+
+    uid, n_envs, n_steps = DRAW_RGB
+    name = f"{uid} rgb x{n_envs}"
+    kernel = tr.KERNEL
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="rgb", device=dev)
+    base = env.unwrapped
+    zero = torch.zeros(n_envs, 7, device=dev)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    cam = base._sensors["base_camera"]
+    H, W = cam.config.height, cam.config.width
+    print(f"{name}: built and warmed up in {time.perf_counter() - t0:.2f} s; camera {W}x{H}, {base.MAX_DOTS} ink dots "
+          f"per env")
+    kernel.launches = 0
+    env.reset(seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n_steps):
+                obs, *_ = env.step(zero)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = kernel.launches
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    check(launches == 1 + n_steps, f"{name}: kernel launches {launches} != resets + steps {1 + n_steps}")
+    check(not syncs, f"{name}: {len(syncs)} host syncs in {n_steps} steps, at {collections.Counter(syncs)}")
+    rgb = obs["sensor_data"]["base_camera"]["rgb"]
+    check(tuple(rgb.shape) == (n_envs, H, W, 3) and rgb.dtype == torch.uint8, f"{name}: rgb {tuple(rgb.shape)}")
+    check(bool(torch.isfinite(obs["agent"]["qpos"]).all()), f"{name}: agent obs not finite")
+
+    # the last frame again, outside the path's count: the whole batch through
+    # the kernel, 16 envs through the plain version, DRAW_DENSE_ENVS envs
+    # through the unbinned per-face walk
+    mesh = cam._get_mesh(tuple(base._hidden_objects))
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj, H, W,
+                          lights=base.scene.lights)
+    before = kernel.launches
+    zk, sk, rk, dk = tr.rasterize_tiles(*inputs, H, W)
+    kernel.launches = before
+    m = 16
+    zp, sp, rp, dp = tr.rasterize_tiles_ref(*[a[:m] for a in inputs[:5]], inputs[5], H, W)
+    check(int(dk) == 0 and int(dp) == 0, f"{name}: dropped {int(dk)} (kernel), {int(dp)} (plain)")
+    check(bool(torch.equal(zk[:m].view(torch.int32), zp.view(torch.int32))), f"{name}: 1/z depth not bit-equal to "
+          f"the plain version's, max |d| {float((zk[:m] - zp).abs().max())}")
+    check(bool(torch.equal(sk[:m], sp)),
+          f"{name}: seg differs from the plain version's on {int((sk[:m] != sp).sum())} px")
+    check(bool(torch.equal(rk[:m], rp)), f"{name}: rgb differs from the plain version's")
+    check(bool(torch.equal((torch.clamp(rp, 0, 1) * 255).to(torch.uint8), rgb[:m])),
+          f"{name}: the rgb obs differs from the plain re-render")
+    table, valid = tr.face_records(*inputs)
+    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, H, W)
+    q = DRAW_DENSE_ENVS
+    _, dense_seg = dense_walk(torch, table[:q], H, W)
+    differ = int((dense_seg != sk[:q]).sum())
+    check(differ == 0, f"{name}: seg differs from the unbinned per-face walk on {differ} px of {q} envs")
+    full = int(counts.max())
+    print(f"{name}: {n_envs * n_steps / step_s:.1f} env-steps/s ({step_s / n_steps * 1e3:.2f} ms/step, eager), "
+          f"kernel launches {launches}, 0 host syncs in {n_steps} steps, dropped 0; the last frame of {m} envs "
+          f"re-rendered through the plain version: 1/z bit-equal, seg and rgb equal; of {q} envs through an "
+          f"unbinned per-face walk over the whole frame: seg equal on every pixel; the fullest band's list "
+          f"{full} entries (after the timed loop; {1024} was the reference's cap) {card}")
+    before = kernel.launches
+    k_ms = cuda_ms(lambda: kernel(table, idx, counts, H, W), 20)
+    k16_ms = cuda_ms(lambda: kernel(table[:m], idx[:m], counts[:m], H, W), 20)
+    p16_ms = cuda_ms(lambda: tr.raster_bands_ref(table[:m], idx[:m], counts[:m], H, W), 1)
+    frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, H, W), 5)
+    kernel.launches = before
+    bound_ms, bound_by = raster_bound_ms(table, counts, H, W)
+    paths[f"drawtriangle_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p16_ms, plain_envs=m,
+                                               ms_plain_envs=k16_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                               bound_share=bound_ms / k_ms, fullest_band=full)
+    print(f"raster kernel (draw triangle, {n_envs}x{H}x{W}): {k_ms:.4f} ms/frame, bound {bound_ms:.4f} ms "
+          f"({bound_by}, every live list entry counted: {bound_ms / k_ms:.3f} of it); {m} envs: kernel "
+          f"{k16_ms:.4f} ms vs plain {p16_ms:.3f} ms {card}")
+    print(f"draw triangle tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per band: "
+          f"mean {counts.float().mean().item():.1f}, max {full}, faces in the scene {inputs[0].shape[1]} {card}")
+    return float((zk[:m] - zp).abs().max())
 
 
 def _set_cabinet_assets(partnet: bool):
@@ -2794,8 +3046,9 @@ def rfcl_sb3_worker(tmp: str, card: str):
     (warm-up, then learning train steps), one more learning train step under
     the profiler (0 syncs, 0 host-to-device copies), a curriculum reset on
     the card restoring a demo state within STATE_RESTORE_TOL; then
-    SB3_STEPS steps of the SB3 adapter, one of them profiled (one
-    device-to-host copy). Returns its seconds."""
+    SB3_STEPS steps of the SB3 adapter and SB3_PROFILES profiled (one
+    device-to-host copy a step, the most any profile reads). Returns its
+    seconds."""
     import os
 
     import torch
@@ -2854,13 +3107,20 @@ def rfcl_sb3_worker(tmp: str, card: str):
     check(isinstance(v_obs, np.ndarray) and v_obs.shape[0] == n_envs and len(infos) == n_envs,
           f"sb3: obs {type(v_obs)}, {len(infos)} infos")
     check(np.isfinite(v_obs).all() and np.isfinite(rew).all(), "sb3: non-finite obs or rewards")
-    events, step = profile_calls(lambda: vec.step(actions), 1)
-    d2h = sum(e.count for e in events.key_averages() if e.key.startswith("Memcpy DtoH"))
-    check(d2h == 1, f"sb3: a step makes {d2h} device-to-host copies")
+    # the profiler now and then loses device records, a copy's among them, and
+    # never adds one (scripts/profiler_record_loss.py): a step's copies are the
+    # most that any of SB3_PROFILES profiled steps reads
+    reads = []
+    for _ in range(SB3_PROFILES):
+        events, step = profile_calls(lambda: vec.step(actions), 1)
+        reads.append(sum(e.count for e in events.key_averages() if e.key.startswith("Memcpy DtoH")))
+    d2h = max(reads)
+    check(d2h == 1, f"sb3: a step makes {d2h} device-to-host copies (the profiled steps read {reads})")
     print(f"sb3 adapter {uid} x{n_envs}: {SB3_STEPS} steps of numpy actions in {sb3_s:.2f} s "
           f"({n_envs * SB3_STEPS / sb3_s:.1f} env-steps/s), obs {v_obs.shape} {v_obs.dtype}, {len(infos)} info "
-          f"dicts; one step profiled: {d2h} device-to-host copy, {step['h2d_copies']:.0f} host-to-device, "
-          f"{step['syncs']:.0f} stream/event syncs {card}")
+          f"dicts; {SB3_PROFILES} steps profiled: {d2h} device-to-host copy a step (the most of {reads}); the last "
+          f"step {step['h2d_copies']:.0f} host-to-device, {step['syncs']:.0f} stream/event syncs, "
+          f"{step['kernel_records']:.0f} kernel records of {step['launches']:.0f} launches {card}")
     return time.perf_counter() - t0
 
 
@@ -2964,10 +3224,13 @@ def main(device: str = "cuda"):
         check(bool(torch.equal(zk.view(torch.int32), zp.view(torch.int32))),
               f"{name}: depth not bit-equal, max |d| {(zk - zp).abs().max().item()}")
         if rows is not None:
-            check(int(dk) > 0, f"{name}: no band overflowed")
+            _, counts, _ = tr.bin_faces(args[0], args[1], tr.face_records(*args)[1], H, W)
+            check(int(counts.max()) > 1024 and int(dk) == 0,
+                  f"{name}: the fullest band holds {int(counts.max())} faces, dropped {int(dk)}")
         max_err = max(max_err, (zk - zp).abs().max().item(), (rk - rp).abs().max().item())
         print(f"kernel == plain on {name}: seg/rgb equal, depth bit-equal, dropped {int(dk)}, "
-              f"fg {(sk >= 0).float().mean().item():.3f}")
+              f"fg {(sk >= 0).float().mean().item():.3f}"
+              + (f", the fullest band's list {int(counts.max())} entries (walked whole)" if rows else ""))
 
     stamp("phases 1-3")
 
@@ -3250,14 +3513,25 @@ def main(device: str = "cuda"):
     stamp("phase 40")
     max_err = max(max_err, grasp_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 41")
+    max_err = max(max_err, draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 43")
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
     stamp("phase 28")
     max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 29")
 
     # ---- phases 32-38: record, replay, learn from the files -------------------
-    max_err = max(max_err, data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths,
-                                                   stamp))
+    # beside them, phases 42 and 44 (slice 14's state paths and planner) in a
+    # process of their own
+    slice_pool = spawn_pool(1)
+    try:
+        slice14 = slice_pool.submit(slice14_worker, card + SLICE14_SHARED)
+        max_err = max(max_err, data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths,
+                                                       stamp))
+        slice_s = slice14.result()
+    finally:
+        slice_pool.shutdown(wait=True, cancel_futures=True)
+    stamp("phases 42 and 44 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice_s.items()) + " in their process)")
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

@@ -9,23 +9,27 @@ from .floating_robotiq import FloatingRobotiq2F85Gripper
 from .googlerobot import GoogleRobot
 from .inspire_hand import FixedInspireHandLeft, FixedInspireHandRight, FloatingInspireHandLeft, FloatingInspireHandRight
 from .koch import Koch
-from .panda import Panda, PandaWristCam
+from .panda import Panda, PandaStick, PandaWristCam
 from .so100 import SO100
 from .stompy import Stompy
 from .trifingerpro import TriFingerPro
-from .unitree_g1 import UnitreeG1Simplified
+from .unitree_g1 import (UnitreeG1, UnitreeG1Simplified, UnitreeG1UpperBody, UnitreeG1UpperBodyRightArm,
+                         UnitreeG1UpperBodyWithHeadCamera)
 from .unitree_go import UnitreeGo2, UnitreeGo2Simplified
-from .unitree_h1 import UnitreeH1, UnitreeH1Simplified
+from .unitree_h1 import UnitreeH1, UnitreeH1Simplified, UnitreeH1WithHandsUpperBodyOnly
 from .ur_e import UR10e
 from .widowxai import WidowXAI, WidowXAIWristCam
 from .xarm import XArm7, XArm7Ability
 from .xarm6 import XArm6NoGripper, XArm6NoGripperWristCamera, XArm6Robotiq, XArm6RobotiqWristCamera
 from .xlerobot import Xlerobot
 
-__all__ = ["AllegroHandLeft", "AllegroHandRight", "AllegroHandRightTouch", "ANYmalC", "DClaw", "Fetch",
-           "FixedInspireHandLeft", "FixedInspireHandRight", "FloatingAbilityHandRight", "FloatingInspireHandLeft",
-           "FloatingInspireHandRight", "FloatingPandaGripper", "FloatingRobotiq2F85Gripper", "GoogleRobot", "Koch",
-           "Panda", "PandaWristCam", "SO100", "Stompy", "TriFingerPro", "UnitreeG1Simplified", "UnitreeGo2",
-           "UnitreeGo2Simplified", "UnitreeH1", "UnitreeH1Simplified", "UR10e", "WidowXAI", "WidowXAIWristCam",
-           "XArm6NoGripper", "XArm6NoGripperWristCamera", "XArm6Robotiq", "XArm6RobotiqWristCamera", "XArm7",
-           "XArm7Ability", "Xlerobot"]
+__all__ = [
+    "AllegroHandLeft", "AllegroHandRight", "AllegroHandRightTouch", "ANYmalC", "DClaw", "Fetch",
+    "FixedInspireHandLeft", "FixedInspireHandRight", "FloatingAbilityHandRight", "FloatingInspireHandLeft",
+    "FloatingInspireHandRight", "FloatingPandaGripper", "FloatingRobotiq2F85Gripper", "GoogleRobot", "Koch",
+    "Panda", "PandaStick", "PandaWristCam", "SO100", "Stompy", "TriFingerPro", "UnitreeG1", "UnitreeG1Simplified",
+    "UnitreeG1UpperBody", "UnitreeG1UpperBodyRightArm", "UnitreeG1UpperBodyWithHeadCamera", "UnitreeGo2",
+    "UnitreeGo2Simplified", "UnitreeH1", "UnitreeH1Simplified", "UnitreeH1WithHandsUpperBodyOnly", "UR10e",
+    "WidowXAI", "WidowXAIWristCam", "XArm6NoGripper", "XArm6NoGripperWristCamera", "XArm6Robotiq",
+    "XArm6RobotiqWristCamera", "XArm7", "XArm7Ability", "Xlerobot",
+]

@@ -1,2 +1,3 @@
 from .panda import Panda
 from .panda_wristcam import PandaWristCam
+from .panda_stick import PandaStick

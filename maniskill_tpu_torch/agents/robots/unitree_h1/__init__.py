@@ -1,1 +1,1 @@
-from .h1 import UnitreeH1, UnitreeH1Simplified
+from .h1 import UnitreeH1, UnitreeH1Simplified, UnitreeH1WithHandsUpperBodyOnly

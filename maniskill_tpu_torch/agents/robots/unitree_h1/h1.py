@@ -1,6 +1,6 @@
 """Unitree H1 humanoid (counterpart of
-maniskill_tpu/agents/robots/unitree_h1/h1.py: UnitreeH1 and
-UnitreeH1Simplified).
+maniskill_tpu/agents/robots/unitree_h1/h1.py: UnitreeH1, UnitreeH1Simplified
+and UnitreeH1WithHandsUpperBodyOnly).
 
 Loaded from the port's copy of the compact URDF (public h1_description
 frames, primitive collisions). 19 actuated dofs; keyframe qpos is in the
@@ -16,7 +16,7 @@ import numpy as np
 
 from .... import PACKAGE_ASSET_DIR
 from ...base_agent import BaseAgent, Keyframe
-from ...controllers import PDJointPosControllerConfig
+from ...controllers import PassiveControllerConfig, PDJointPosControllerConfig
 from ...registration import register_agent
 
 _LEG = ["hip_yaw", "hip_roll", "hip_pitch", "knee", "ankle"]
@@ -77,3 +77,56 @@ class UnitreeH1Simplified(UnitreeH1):
     already)."""
 
     uid = "unitree_h1_simplified"
+
+
+@register_agent()
+class UnitreeH1WithHandsUpperBodyOnly(UnitreeH1):
+    """H1 with wrist rolls and an actuated right-hand thumb chain: the 8
+    shoulder and elbow joints and the 6 wrist and thumb joints run under PD,
+    the 11 leg and torso joints run passive."""
+
+    uid = "unitree_h1_with_hands_upper_body_only"
+    urdf_path = os.path.join(PACKAGE_ASSET_DIR, "robots", "unitree_h1", "h1_with_hand.urdf")
+
+    body_joints = [
+        "left_shoulder_pitch_joint", "right_shoulder_pitch_joint",
+        "left_shoulder_roll_joint", "right_shoulder_roll_joint",
+        "left_shoulder_yaw_joint", "right_shoulder_yaw_joint",
+        "left_elbow_joint", "right_elbow_joint",
+    ]
+    arm_hand_joints = [
+        "left_hand_joint", "right_hand_joint",
+        "R_thumb_proximal_yaw_joint", "R_thumb_proximal_pitch_joint",
+        "R_thumb_intermediate_joint", "R_thumb_distal_joint",
+    ]
+    passive_joints = [
+        "left_hip_yaw_joint", "left_hip_roll_joint", "left_hip_pitch_joint",
+        "left_knee_joint", "left_ankle_joint",
+        "right_hip_yaw_joint", "right_hip_roll_joint",
+        "right_hip_pitch_joint", "right_knee_joint", "right_ankle_joint",
+        "torso_joint",
+    ]
+
+    keyframes = dict(standing=Keyframe(pose=np.array([0, 0, 0.975, 1, 0, 0, 0]), qpos=np.zeros(25)))
+
+    @property
+    def _controller_configs(self):
+        def pd(joints, **kw):
+            return PDJointPosControllerConfig(
+                joint_names=joints, stiffness=self.body_stiffness, damping=self.body_damping,
+                force_limit=self.body_force_limit, **kw,
+            )
+
+        passive = PassiveControllerConfig(joint_names=self.passive_joints, damping=5.0, force_limit=200)
+        absolute = dict(lower=None, upper=None, normalize_action=False)
+        delta = dict(lower=-0.2, upper=0.2, use_delta=True)
+        return dict(
+            pd_joint_pos=dict(
+                body=pd(self.body_joints, **absolute), arm_hands=pd(self.arm_hand_joints, **absolute),
+                legs=passive, balance_passive_force=False,
+            ),
+            pd_joint_delta_pos=dict(
+                body=pd(self.body_joints, **delta), arm_hands=pd(self.arm_hand_joints, **delta),
+                legs=passive, balance_passive_force=False,
+            ),
+        )

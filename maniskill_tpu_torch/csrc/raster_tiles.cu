@@ -11,8 +11,11 @@
 //   table  (B, F, 16) f32  per-face records
 //          [e01 a,b,c, e12 a,b,c, e20 a,b,c, 1/z a,b,c, seg, r, g, b]
 //   idx    (B, T, K) i32   per 16-row band, the overlapping face ids in
-//                          list order (stable), truncated at K
-//   counts (B, T)    i32   live entries of each band's list
+//                          list order (stable); the wrapper passes K = F,
+//                          so no band's list is ever cut
+//   counts (B, T)    i32   live entries of each band's list; a block walks
+//                          all of them, however many, staging at most
+//                          kChunk records at a time
 // Outputs
 //   iz  (B, H, W)    f32   winning 1/z (0 = background)
 //   seg (B, H, W)    i32   winning segmentation id (-1 = background)

@@ -206,6 +206,10 @@ class BaseEnv:
         """Task hook run at the top of each control step, before the action
         is applied (a digital twin re-poses its camera mount here)."""
 
+    def _after_control_step(self):
+        """Task hook run after the physics substeps and their forward
+        kinematics, before ``get_info`` (a drawing task lays its ink here)."""
+
     def _after_reconfigure(self, options: dict):
         """Task hook run after the model is built, before the render meshes:
         per-env tables (hulls, masses) are written here."""
@@ -371,6 +375,7 @@ class BaseEnv:
             d = self.agent.before_simulation_step(d, i)
             d = phys.step(model, d)
         scene.bind(phys.forward_kinematics(model, d))
+        self._after_control_step()
 
         info = self.get_info()
         obs = self.get_obs(info)

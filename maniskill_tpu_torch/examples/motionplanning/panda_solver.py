@@ -51,6 +51,9 @@ class PandaMotionPlanningSolver:
         arm_joints = [f"panda_joint{i}" for i in range(1, 8)]
         self.kin = arm_kinematics(self.base.scene, agent.robot, "panda_hand_tcp", arm_joints)
         self.joint_vel_limit = joint_vel_limit
+        # a gripper-less arm (panda_stick, for the drawing tasks) takes an
+        # arm-only action
+        self.has_gripper = "gripper" in agent.controller.controllers
         self.gripper_state = self.OPEN
         self.control_dt = 1.0 / self.base.control_freq
         # the hand pointing straight down (its z axis toward the table)
@@ -62,8 +65,10 @@ class PandaMotionPlanningSolver:
 
     def _exec_targets(self, targets: torch.Tensor):
         """One env step with absolute arm targets and the gripper's state."""
-        gripper = torch.full((self.base.num_envs, 1), self.gripper_state, device=targets.device)
-        return self.env.step(self.base.agent.controller.from_action_dict(dict(arm=targets, gripper=gripper)))
+        act = dict(arm=targets)
+        if self.has_gripper:
+            act["gripper"] = torch.full((self.base.num_envs, 1), self.gripper_state, device=targets.device)
+        return self.env.step(self.base.agent.controller.from_action_dict(act))
 
     def follow_qpos_path(self, q_goal: torch.Tensor, max_steps: int = 100):
         """Interpolate the joints linearly from where they are to ``q_goal``

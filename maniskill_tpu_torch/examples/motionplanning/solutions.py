@@ -405,6 +405,66 @@ def solve_plug_charger(env):
     return align(0.003, steps=30, refine=10)
 
 
+def _trace_polyline(mp, pts_xy: torch.Tensor, draw_z: float, steps_per_seg: int = 20, hover: bool = True):
+    """Drive the stick tip along a 2D polyline (B, N, 2) on the canvas.
+    ``hover=False`` keeps the tip down when the caller has already descended
+    onto the start: the hover move would lift it over the first points."""
+    down = mp.down_q
+    if hover:
+        mp.move_to_pose(_pose(_at_height(pts_xy[:, 0], draw_z + 0.05), down), refine_steps=3)
+    result = None
+    for s in range(pts_xy.shape[1]):
+        result = mp.move_to_pose(_pose(_at_height(pts_xy[:, s], draw_z), down), steps=steps_per_seg)
+    return result
+
+
+def _at_height(xy: torch.Tensor, z: float) -> torch.Tensor:
+    """(B, 2) points lifted to height ``z``: (B, 3)."""
+    return torch.cat([xy, torch.full_like(xy[:, :1], z)], -1)
+
+
+def _triangle_waypoints(verts: torch.Tensor, n_sub: int = 8) -> torch.Tensor:
+    """v0 -> v1 -> v2 -> v0 of (B, 3, 2) vertices, each edge cut in
+    ``n_sub`` so the tip passes within THRESHOLD of every reference point:
+    (B, 3 * n_sub, 2)."""
+    segs = []
+    for e in range(3):
+        a, b = verts[:, e], verts[:, (e + 1) % 3]
+        for k in range(n_sub):
+            segs.append(a + (b - a) * ((k + 1) / n_sub))
+    return torch.stack(segs, 1)
+
+
+def _descend_onto(mp, xy: torch.Tensor, draw_z: float):
+    """Hover above ``xy`` (B, 2), then touch the canvas there."""
+    mp.move_to_pose(_pose(_at_height(xy, draw_z + 0.05), mp.down_q), refine_steps=2)
+    mp.move_to_pose(_pose(_at_height(xy, draw_z), mp.down_q), refine_steps=2)
+
+
+def solve_draw_triangle(env):
+    """Trace the triangle's three edges with the tip on the canvas."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env, joint_vel_limit=0.7)
+    verts = base.scene.data.extras["tri_verts"][:, :, :2]  # (B, 3, 2)
+    draw_z = base.CANVAS_THICKNESS + base.DOT_THICKNESS
+    _descend_onto(mp, verts[:, 0], draw_z)
+    # already touching at v0: trace without the hover, so the tip drags over
+    # the first edge's early reference points
+    return _trace_polyline(mp, _triangle_waypoints(verts), draw_z, steps_per_seg=6, hover=False)
+
+
+def solve_draw_svg(env):
+    """Trace the target polyline with the tip on the canvas."""
+    base = env.unwrapped
+    mp = PandaMotionPlanningSolver(env, joint_vel_limit=0.7)
+    # every third reference point: consecutive waypoints stay within
+    # THRESHOLD of the points between them
+    pts = base.scene.data.extras["svg_points"][:, ::3]
+    draw_z = base.CANVAS_THICKNESS + base.DOT_THICKNESS
+    _descend_onto(mp, pts[:, 0], draw_z)
+    return _trace_polyline(mp, pts, draw_z, steps_per_seg=4)
+
+
 SOLUTIONS = {
     "PushCube-v1": solve_push_cube,
     "PickCube-v1": solve_pick_cube,
@@ -416,5 +476,7 @@ SOLUTIONS = {
     "PullCubeTool-v1": solve_pull_cube_tool,
     "PegInsertionSide-v1": solve_peg_insertion_side,
     "PlugCharger-v1": solve_plug_charger,
+    "DrawTriangle-v1": solve_draw_triangle,
+    "DrawSVG-v1": solve_draw_svg,
     "PickSingleYCB-v1": solve_pick_single_ycb,
 }

@@ -251,8 +251,8 @@ def rasterize(
 
     Returns dict with depth (B, H, W) camera-space metres (0 = background),
     seg (B, H, W) int32 (0 = background), valid (B, H, W) bool, color
-    (B, H, W, 3) in [0, 1], dropped () int32 faces dropped by the tiled
-    path's per-band budget (callers should warn if > 0).
+    (B, H, W, 3) in [0, 1], dropped () int32, always 0 (the tiled path
+    walks every band's whole face list).
     """
     if not (want_normal or want_albedo):
         zbuf, seg, rgb, dropped = rasterize_tiles(

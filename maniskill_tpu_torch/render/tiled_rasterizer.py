@@ -5,9 +5,12 @@ A vertex stage turns each face into a 16-float record — three sign-folded
 edge planes and an affine 1/z plane, plus segmentation id and pre-shaded
 colour — so the per-pixel work is 4 affine evaluations and compares, with
 depth compared in 1/z space. Faces are binned into 16-row bands (a stable
-compaction of the overlapping faces to the front of each band's list, capped
-at ``MAX_BAND_FACES``; overflow is dropped AND counted). The per-pixel loop
-then walks only its band's list.
+compaction of the overlapping faces to the front of each band's list). A
+band's list is never cut: the reference's Pallas kernel caps it at 1,024
+faces (its SMEM block), and the reference never takes that path where a band
+could overflow (its dense path draws every face), so the port walks every
+band's whole list in one launch and drops nothing. The per-pixel loop walks
+only its band's list.
 
 ``rasterize_tiles`` runs that loop as the hand-written CUDA kernel in
 ``csrc/raster_tiles.cu`` on a CUDA tensor, and as the plain torch version
@@ -30,7 +33,6 @@ import torch
 
 TILE_H = 16
 REC = 16
-MAX_BAND_FACES = 1024  # per-band face-list budget (the reference's K)
 
 _PKG = Path(__file__).resolve().parents[1]
 _SRC = _PKG / "csrc" / "raster_tiles.cu"
@@ -91,8 +93,10 @@ def face_records(fx, fy, inv_z, ok, face_rgb, face_seg):
 def bin_faces(fx, fy, valid, height: int, width: int):
     """Per 16-row band, the overlapping face ids in stable list order.
 
-    Returns (idx (B, T, min(K, F)) i32, counts (B, T) i32 capped at K,
-    dropped () i32 = overlapping faces beyond each band's K, summed).
+    Returns (idx (B, T, F) i32: each band's whole list, then unused entries;
+    counts (B, T) i32: live entries; dropped () i32: always 0, nothing is
+    cut). The (B, T, F) argsort's int64 order is the largest intermediate:
+    ~2 GB at B=512, T=15, F=32,000.
     """
     F = fx.shape[1]
     T = -(-height // TILE_H)
@@ -106,11 +110,9 @@ def bin_faces(fx, fy, valid, height: int, width: int):
         & (ymin[:, None, :] < bands + TILE_H)
     )  # (B, T, F)
     order = torch.argsort((~overlap).to(torch.uint8), dim=-1, stable=True)
-    idx = order[..., : min(MAX_BAND_FACES, F)].to(torch.int32).contiguous()
-    counts_raw = overlap.sum(-1, dtype=torch.int32)
-    counts = torch.clamp(counts_raw, max=MAX_BAND_FACES).contiguous()
-    dropped = torch.clamp(counts_raw - MAX_BAND_FACES, min=0).sum(dtype=torch.int32)
-    return idx, counts, dropped
+    idx = order.to(torch.int32).contiguous()
+    counts = overlap.sum(-1, dtype=torch.int32).contiguous()
+    return idx, counts, torch.zeros((), dtype=torch.int32, device=fx.device)
 
 
 # ---------------------------------------------------------------------------

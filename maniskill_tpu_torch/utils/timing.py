@@ -35,9 +35,15 @@ def timed_steps(env, action, n: int) -> float:
 
 def profile_calls(fn, n: int, cpu_ops: bool = False):
     """Run ``fn()`` ``n`` times under torch.profiler. Returns (profiler,
-    per-call summary): kernel launches, stream and event syncs (the window's
-    own closing device sync is neither), memcpy calls, host-to-device
-    copies, device kernel ms, host ms and the device's idle share.
+    per-call summary): kernel launches, the device's kernel records, stream
+    and event syncs (the window's own closing device sync is neither),
+    memcpy calls, host-to-device copies, device kernel ms, host ms and the
+    device's idle share.
+
+    Launches and syncs are host-side records; kernel records, copies and
+    device ms are device-side records, of which the profiler now and then
+    loses a run: kernel records then fall short of launches
+    (``scripts/profiler_record_loss.py`` counts how often).
 
     The CUDA activity alone records the runtime calls and the device work
     these counts read; ``cpu_ops`` adds the torch operators (for a table or
@@ -64,6 +70,7 @@ def profile_calls(fn, n: int, cpu_ops: bool = False):
     device_ms = sum(device_us(e) for e in kernels) / 1e3
     summary = dict(
         launches=count("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC") / n,
+        kernel_records=sum(e.count for e in kernels) / n,
         syncs=count("cudaStreamSynchronize", "cudaEventSynchronize") / n,
         memcpy=count("cudaMemcpyAsync", "cudaMemcpy") / n,
         h2d_copies=sum(e.count for e in events if e.key.startswith("Memcpy HtoD")) / n,

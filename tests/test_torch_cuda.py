@@ -55,6 +55,26 @@ def test_raster_kernel_matches_plain(cuda, B, F, H, W, band_rows):
     assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
 
 
+def test_raster_kernel_walks_a_band_past_1024_faces(cuda):
+    """A band list of several thousand entries (the reference's Pallas list
+    stops at 1,024) is walked whole in one launch: bit-equal to the plain
+    version, nothing dropped."""
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+
+    H, W = 48, 320
+    args = [torch.as_tensor(a, device=cuda) for a in _faces(np.random.default_rng(7), 4, 5000, H, W, (18.0, 30.0))]
+    table, valid = tr.face_records(*args)
+    _, counts, _ = tr.bin_faces(args[0], args[1], valid, H, W)
+    assert int(counts.max()) > 4 * 1024, counts
+    launches = tr.KERNEL.launches
+    zk, sk, rk, dk = tr.rasterize_tiles(*args, H, W)
+    zp, sp, rp, dp = tr.rasterize_tiles_ref(*args, H, W)
+    assert tr.KERNEL.launches == launches + 1
+    assert int(dk) == int(dp) == 0
+    assert torch.equal(sk, sp) and torch.equal(rk, rp)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+
+
 def test_slice_steps_through_the_kernel(cuda):
     import maniskill_tpu_torch.envs  # noqa: F401
     from maniskill_tpu_torch import make

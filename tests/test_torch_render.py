@@ -6,7 +6,13 @@ maniskill_tpu_torch.sensors) with the JAX package's, on the CPU.
   ``pallas_rasterize_tiles`` run under ``force_tpu_interpret_mode`` on random
   faces made with numpy: seg equal on >= 99.9% of pixels (XLA:CPU may
   contract the plane evaluations to FMAs and move an edge pixel), 1/z depth
-  within rtol 1e-5 where seg agrees, ``dropped`` equal.
+  within rtol 1e-5 where seg agrees. The port drops no face; the Pallas
+  kernel cuts a band's list at 1,024 faces, so where a band overflows it is
+  run on two halves of the faces, each under the cap, and merged as the list
+  walk would.
+- A pile of 40 coincident cylinders (1,206 front faces in one band) and a
+  box built after them, drawn by the port's ``rasterize`` and by the JAX
+  package's dense path: seg equal on every pixel, ``dropped`` 0.
 - The plain version against a literal face-by-face loop in numpy (the
   kernel's semantics): equal on every pixel, including ragged sizes.
 - The camera (all modalities) against the JAX camera on the cartpole scene,
@@ -69,14 +75,32 @@ def random_faces(rng, B, F, H, W, band_rows=None):
 )
 def test_tiled_matches_pallas_interpret(B, F, H, W, band_rows):
     args = random_faces(np.random.default_rng(F), B, F, H, W, band_rows)
-    with pltpu.force_tpu_interpret_mode():
-        zj, sj, rj, dj = pallas_rasterize_tiles(*[jnp.asarray(a) for a in args], H, W)
+
+    def pallas(faces):
+        fx, fy, inv_z, ok, rgb, seg = args
+        with pltpu.force_tpu_interpret_mode():
+            out = pallas_rasterize_tiles(
+                *[jnp.asarray(a[:, faces]) for a in (fx, fy, inv_z, ok, rgb)], jnp.asarray(seg[faces]), H, W
+            )
+        return [np.asarray(x) for x in out]
+
+    zj, sj, rj, dj = pallas(slice(None))
     zt, st, rt, dt = tr.rasterize_tiles(*[torch.as_tensor(a) for a in args], H, W)
-    zj, sj, rj = np.asarray(zj), np.asarray(sj), np.asarray(rj)
     zt, st, rt = zt.numpy(), st.numpy(), rt.numpy()
-    assert int(dt) == int(dj)
-    if band_rows is not None:
-        assert int(dt) > 0, "no band overflowed"
+    assert int(dt) == 0
+    if band_rows is None:
+        assert int(dj) == 0
+    else:
+        # the Pallas kernel dropped faces past its 1,024-entry band list; the
+        # port walks the whole list, which equals the first half's list then
+        # the second half's: the second half wins a pixel only where nearer
+        assert int(dj) > 0, "no band overflowed"
+        za, sa, ra, da = pallas(slice(0, F // 2))
+        zb, sb, rb, db = pallas(slice(F // 2, F))
+        assert int(da) == int(db) == 0
+        nearer = (sb >= 0) & (zb < za)
+        zj, rj = np.where(nearer, zb, za), np.where(nearer[..., None], rb, ra)
+        sj = np.where(nearer, sb, sa)
     same = st == sj
     assert same.mean() >= 0.999, same.mean()
     fg = same & (sj >= 0)
@@ -121,6 +145,70 @@ def test_plain_matches_face_by_face(H, W):
     zbuf, seg2, rgb2, _ = tr.rasterize_tiles(*args, H, W)
     np.testing.assert_array_equal(seg2.numpy(), ref[1])
     np.testing.assert_array_equal(zbuf.numpy(), np.where(ref[1] >= 0, 1.0 / np.maximum(ref[0], 1e-9), 1e9))
+
+
+def _pile_scene(scene_cls, n_dots, **kw):
+    """``n_dots`` coincident flat cylinders (marker bodies, as the drawing
+    tasks' undrawn ink dots) and a box built after them, beside the pile."""
+    scene = scene_cls(num_envs=1, sim_timestep=0.01, solver_iterations=4, **kw)
+    for i in range(n_dots):
+        b = scene.create_actor_builder()
+        b.add_cylinder_visual(radius=0.08, half_length=0.0015, color=[0.8, 0.2, 0.2, 1])
+        b.set_initial_pose([0, 0, 0, *PILE_QUAT])
+        b.build_kinematic(f"dot_{i}")
+    b = scene.create_actor_builder()
+    b.add_box_visual(half_size=[0.05, 0.05, 0.01], color=[0.1, 0.3, 0.9, 1])
+    b.set_initial_pose([0.0, 0.15, 0, 1, 0, 0, 0])
+    b.build("box")
+    scene.model = scene.finalize()
+    return scene
+
+
+PILE_QUAT = [np.cos(np.pi / 4), 0.0, np.sin(np.pi / 4), 0.0]
+
+
+def test_band_overflow_draws_every_face():
+    """A band holding more than 1,024 front faces (the reference's Pallas
+    band cap) is drawn whole: the port's ``rasterize`` on the CPU equals the
+    JAX package's dense path, which draws every face. The box is built after
+    the pile, so its faces come last in the band's list: a capped list loses
+    it. 1/z within rtol 5e-5: the tiled path evaluates 1/z as one affine
+    plane, the dense path as a sum of three edge ratios, and their f32
+    roundings part by ~1e-5."""
+    n, H, W = 40, 48, 64
+    poses = np.array([[[0, 0, 0, *PILE_QUAT]] * n], np.float32)
+    qpos = np.array([[0.0, 0.15, 0, 1, 0, 0, 0]], np.float32)
+    js = _pile_scene(JScene, n)
+    js.bind(jphys.forward(js.model, jphys.make_data(js.model, 1).replace(
+        mocap_pose=jnp.asarray(poses), qpos=jnp.asarray(qpos))))
+    ts = _pile_scene(TScene, n, device="cpu")
+    ts.bind(tphys.forward(ts.model, tphys.make_data(ts.model, 1).replace(
+        mocap_pose=torch.as_tensor(poses), qpos=torch.as_tensor(qpos))))
+    cfg = dict(uid="cam", width=W, height=H, fov=1.2, near=0.01, far=100)
+    eye, target = [0.25, 0.05, 0.3], [0, 0.06, 0]
+    jcam = JCamera(JCameraConfig(pose=jlook_at(eye, target), **cfg), js)
+    tcam = TCamera(TCameraConfig(pose=tlook_at(eye, target), **cfg), ts)
+    jmesh, tmesh = jcam._get_mesh(()), tcam._get_mesh(())
+
+    jgpos, jgquat = jphys.geom_poses(js.model, js.data)
+    jo = jax.jit(lambda v, view: jrasterizer.rasterize(jmesh, v, view, jcam.proj, H, W))(
+        jmesh.world_vertices(jgpos, jgquat), jcam._view_matrix()
+    )
+    gpos, gquat = tphys.geom_poses(ts.model, ts.data)
+    args = (tmesh, tmesh.world_vertices(gpos, gquat), tcam._view_matrix(), tcam.proj, H, W)
+    fx, fy, *_ = inputs = trasterizer.tiled_inputs(*args)
+    _, valid = tr.face_records(*inputs)
+    _, counts, _ = tr.bin_faces(fx, fy, valid, H, W)
+    assert int(counts.max()) > 1024, counts
+    to = trasterizer.rasterize(*args)
+
+    jseg, tseg = np.asarray(jo["seg"]), to["seg"].numpy()
+    assert int(to["dropped"]) == 0
+    np.testing.assert_array_equal(tseg, jseg)
+    box = int(tmesh.face_seg[-1])
+    assert (jseg == 1).sum() > 50 and (jseg == box).sum() > 50  # the pile's top and the box
+    fg = jseg > 0
+    np.testing.assert_allclose(1.0 / to["depth"].numpy()[fg], 1.0 / np.asarray(jo["depth"])[fg], rtol=5e-5)
 
 
 def test_kernel_refuses_cpu_tensors():

@@ -12,7 +12,7 @@
   and a box fitted by the native cooking library's ``fit_capsule`` and
   ``fit_obb``), the same meshes decomposed into convex hulls, and a visual
   mesh, equal to 1e-9 between the packages.
-- The nineteen URDFs the port loads are byte-equal copies of the JAX
+- The twenty-two URDFs the port loads are byte-equal copies of the JAX
   package's, and every URDF under the port's assets is one of them.
 - A process that blocks jax, flax, gymnasium, lxml and maniskill_tpu loads
   every URDF robot of the port, steps AnymalC-Reach-v1 and
@@ -44,7 +44,8 @@ PORT_URDFS = ["anymal_c/anymal_c.urdf", "unitree_go2/go2_description.urdf", "uni
               "inspire_hand/inspire_hand_left_floating.urdf", "inspire_hand/inspire_hand_right.urdf",
               "inspire_hand/inspire_hand_right_floating.urdf", "xarm7/xarm7.urdf", "xarm7/xarm7_ability.urdf",
               "widowxai/widowxai.urdf", "xarm6/xarm6_nogripper.urdf", "xarm6/xarm6_robotiq.urdf",
-              "ur_10e/ur10e.urdf", "koch/koch.urdf", "googlerobot/googlerobot.urdf", "stompy/stompy.urdf"]
+              "ur_10e/ur10e.urdf", "koch/koch.urdf", "googlerobot/googlerobot.urdf", "stompy/stompy.urdf",
+              "unitree_g1/g1.urdf", "unitree_g1/g1_simplified_upper_body.urdf", "unitree_h1/h1_with_hand.urdf"]
 LINK_FIELDS = ("name", "parent", "joint_type", "joint_name", "origin_pos", "origin_quat", "axis", "limit",
                "damping", "stiffness", "springref", "armature", "frictionloss", "mass", "com", "inertia", "iquat")
 SHAPE_FIELDS = ("type", "size", "pos", "quat", "friction", "density", "color", "hull", "hull_dirs")
