@@ -295,6 +295,56 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      phase 42 in its process: the solved share (the JAX package has no rate
      for it, so none is required), control steps, moves, one host sync per
      move, wall time.
+ 45. The scenes in state mode, the Fetch, zero actions, in a process of its
+     own (phase 46's first and third twins run in it after) beside phases
+     14, 18, 20 and 21 and their processes: SceneManipulation-v1 (ReplicaCAD) and
+     ProcTHOR_SceneManipulation-v1 with build_config_idxs=[15] at 1024 envs
+     (make time, 5 timed steps, one profiled step with its launches, 0
+     stream/event syncs and 0 host-to-device copies, overflow 0, obs and
+     reward finite in every step; their first 16 envs from one state on the
+     card and in the port on the CPU, 2 zero-action steps, qpos within
+     1e-5); iTHOR_, ArchitecTHOR_ and RoboTHOR_SceneManipulation-v1 at 256
+     envs and PickClutterYCB-v1 with robot_uids="fetch" at 1024 (reset, 2
+     steps, the same checks).
+ 46. The four BridgeData v2 twins (PutCarrotOnPlateInScene,
+     PutEggplantInBasketScene, PutSpoonOnTableClothInScene,
+     StackGreenCubeOnYellowCubeBakedTexInScene) in state mode at 1024 envs,
+     500/5 Hz (100 substeps a control step), two in phase 45's process and
+     two in a process of their own beside phases 32-34: make time; the
+     masked reset of every env on device tensors (its 50-substep settle
+     inside) under torch's sync check (0 host syncs; a blocking
+     host-to-device copy trips it too; the profiler would take ~50 s to
+     read the reset's ~190,000 records); every env's settled objects
+     within 1 cm of a spawn config's cells and on the arena (the plate stand-in, a cylinder, falls through
+     the box table, as in the JAX package: printed); a partial reset of half
+     the envs: the settle leaves the other half's Data bit-equal in every
+     field, the reset their state (its closing forward pass recomputes every
+     env's contacts, as in the JAX package); 2 timed control steps of a
+     small end-effector move with the gripper closing, under the sync check;
+     5 physics substeps profiled on the step's data (a whole control step's
+     ~395,000 records take the profiler ~90 s to read); overflow 0, obs
+     finite, success and the statistics bool; the first 16 envs from one
+     state on the card and on the CPU, 1 control step, qpos within 1e-4.
+ 47. SceneManipulation-v1 rgb, 1024 envs, three cameras (base_camera and the
+     Fetch's fetch_head and fetch_hand): reset + 5 steps; kernel launches ==
+     cameras x (resets + steps), dropped == 0; the last frame of 16 envs of
+     each camera re-rendered through the plain version (seg agreement >=
+     0.999, rgb equal); faces per band and the kernel's ms per frame against
+     its bound per camera.
+ 48. PutCarrotOnPlateInScene-v1 rgb+segmentation, 512 envs, its 640x480
+     camera (the calibrated intrinsic, 30 bands of 16 rows), the greenscreen
+     over the procedural overlay: reset + 3 control steps; kernel launches ==
+     resets + steps, 0 host syncs in the steps, dropped == 0; the last raw
+     frame (before the composite) of 4 envs re-rendered through the plain
+     version (1/z bit-equal, seg and rgb equal); the segmentation obs the
+     kernel's and the rgb obs where(keep[seg], raw rgb, overlay) in every
+     env; the carrot and the robot in view in every env; faces per env and
+     per band; then the other three twins (PutEggplantInBasketScene's sink
+     camera among them) at 64 envs, reset + 1 step, with the same checks.
+     Its control steps are host-bound (100 substeps each), so it runs in
+     phase 46's second process after that phase's twins; the kernel's ms
+     per frame against its bound is taken on each cell's last frame in the
+     main process after that process ends, with the card to itself.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -306,13 +356,16 @@ per task and phases 30-31 10 and 16 train steps, so that the whole run
 stays well inside its time limit. The host-bound state paths overlap,
 each launching from a process of its own while the card stays mostly idle:
 after phase 15, phase 16's planner batches (4 processes), phases 23, 24
-and 26 (one process) and phases 39 and 30 (one process) run beside phases
-14, 18, 20 and 21; then TD-MPC2
+and 26 (one process), phases 39 and 30 (one process) and phase 45 with
+two of phase 46's twins (one process) run beside phases 14, 18, 20 and 21;
+then TD-MPC2
 (phase 31, whose planner is device-bound), the rest of 16-17 (the planner
-CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41, 43 with 28
-and 29, whose kernel times are taken, with the card to this process alone;
-in phases 32-34 the two per-episode replays, phases 35-38 and phases 42
-and 44 run in processes of their own. A rate or a device time taken beside other processes says so
+CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41, 43, 47
+with 28 and 29, whose kernel times are taken, with the card to this
+process alone; in phases 32-34 the two per-episode replays, phases 35-38,
+phases 42 and 44, and two of phase 46's twins with phase 48 run in
+processes of their own (phase 48's kernel times are taken after them). A
+rate or a device time taken beside other processes says so
 where it is printed: the card time-slices between the processes' contexts,
 so device times read there run long.
 The last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -321,12 +374,14 @@ kernels with their launches on each path, errors, times and bounds.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -498,16 +553,16 @@ REPLAY_EPISODES = 4
 STATE_RESTORE_TOL = 1e-5
 BC_EPOCHS = 5
 RLPD_CELL = ("PickCube-v1", 1, 3)
-SHARED = (" (sharing the card with phase 33's two per-episode replays, phases 35-38's processes and the process of "
-          "phases 42 and 44)")
+SHARED = (" (sharing the card with phase 33's two per-episode replays, phases 35-38's processes and the processes of "
+          "phases 42 and 44 and of phases 46 and 48)")
 # phases 14, 16, 18, 20, 21, 23, 24, 26, 30 and 39 overlap in processes of
 # their own: each of these host-bound paths launches its kernels from its own
 # process while the card stays mostly idle
-PLANNER_SHARED = (" (beside phase 16's planner processes, the process of phases 23, 24 and 26 and that of "
-                  "phases 39 and 30)")
+PLANNER_SHARED = (" (beside phase 16's planner processes, the process of phases 23, 24 and 26, that of phases 39 "
+                  "and 30 and that of phases 45 and 46's first two twins)")
 SIDE_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
-               "the process of phases 39 and 30)")
-PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26, 30 and 39)"
+               "the processes of phases 39 and 30 and of phases 45 and 46)")
+PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26, 30, 39, 45 and 46)"
 # phases 35-38: the last trainers, in processes of their own beside phases
 # 32-34. DP and ACT train on phase 32's recording (DP's rgb leg on phase 33's
 # re-rendered frames) at their CLIs' defaults for a few epochs and evaluate
@@ -520,7 +575,8 @@ RFCL_CELL = ("PickCube-v1", 256, 1, 3)
 RFCL_DEMOS = "demos/PickCube-v1/mp_PickCube-v1.h5"
 SB3_STEPS = 5
 SB3_PROFILES = 3
-TRAINER_SHARED = " (in a process of its own beside phases 32-34 and the process of phases 42 and 44)"
+TRAINER_SHARED = (" (in a process of its own beside phases 32-34 and the processes of phases 42 and 44 and of "
+                  "phases 46 and 48)")
 # phase 39: the dexterity family, state, zero actions: the four timed tasks
 # (env, action width) at DEX_ENVS, the other levels at DEX_LEVEL_ENVS, and
 # Empty-v1 with each robot no task uses (random actions)
@@ -543,7 +599,7 @@ EMPTY_ROBOTS = ("floating_ability_hand_right", "floating_inspire_hand_right", "f
                 "allegro_hand_right", "allegro_hand_left")
 EMPTY_ENVS, EMPTY_STEPS = 256, 3
 DEX_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
-              "the process of phases 23, 24 and 26)")
+              "the processes of phases 23, 24 and 26 and of phases 45 and 46)")
 # phase 39, the arm slice: (env, action width, control mode) at ARM_ENVS,
 # SO100GraspCube with its domain randomization on, and Empty-v1 with each
 # arm robot in every control mode it offers
@@ -573,7 +629,8 @@ SLICE14_ENVS, SLICE14_STEPS, SLICE14_QPOS_TOL = 4096, 10, 1e-5
 # DrawTriangle's pd_joint_delta_pos action that pitches the shoulder forward
 # and lays the stick's tip on the canvas within ~7 steps, DRAW_STEPS steps
 DRAW_ACTION, DRAW_STEPS = (0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0), 10
-SLICE14_SHARED = " (in a process of its own beside phases 32-34 and their processes)"
+SLICE14_SHARED = (" (in a process of its own beside phases 32-34, their processes and the process of phases 46 "
+                  "and 48)")
 # phase 43: DrawTriangle rgb through the kernel, its own 320x240 camera and
 # every ink dot (the undrawn ones piled in one or two bands); the last frame
 # of DRAW_DENSE_ENVS envs through an unbinned per-face walk
@@ -581,6 +638,54 @@ DRAW_RGB = ("DrawTriangle-v1", 512, 10)
 DRAW_DENSE_ENVS = 4
 # phase 44: the planner's DrawTriangle solution from one reset
 DRAW_PLANNER = ("DrawTriangle-v1", 256)
+# phase 45: the scenes in state mode, the Fetch (13 actions: arm 7, gripper
+# 1, body 3, base 2), zero actions: (env, make kwargs) timed at SCENE_ENVS,
+# the other builders at SCENE_OTHER_ENVS, PickClutterYCB with the Fetch; the
+# first DEX_CPU_ENVS envs of the timed two against the CPU port
+SCENE_TIMED = (("SceneManipulation-v1", {}), ("ProcTHOR_SceneManipulation-v1", {"build_config_idxs": [15]}))
+SCENE_ENVS, SCENE_STEPS = 1024, 5
+SCENE_OTHERS = ("iTHOR_SceneManipulation-v1", "ArchitecTHOR_SceneManipulation-v1", "RoboTHOR_SceneManipulation-v1")
+SCENE_OTHER_ENVS, SCENE_OTHER_STEPS = 256, 2
+CLUTTER_FETCH = ("PickClutterYCB-v1", 1024, 2)
+SCENE_CPU_QPOS_TOL = 1e-5
+FETCH_ACTION = 13
+# phase 46: the BridgeData v2 twins in state mode on the WidowX-250S (500/5
+# Hz: 100 substeps a control step, 50 more to settle in every reset); a small
+# end-effector move (m, rad; the arm's action is unnormalized) with the
+# gripper closing; the first DEX_CPU_ENVS envs against the CPU port over one
+# control step; the plate stand-in is a cylinder, which collides with planes
+# and hulls only (in both packages), so it falls through the box table
+BRIDGE_TWINS = ("PutCarrotOnPlateInScene-v1", "PutEggplantInBasketScene-v1", "PutSpoonOnTableClothInScene-v1",
+                "StackGreenCubeOnYellowCubeBakedTexInScene-v1")
+BRIDGE_ENVS, BRIDGE_STEPS = 1024, 2
+BRIDGE_ACTION = (0.005, 0.0, -0.005, 0.0, 0.0, 0.02, -1.0)
+BRIDGE_CPU_STEPS, BRIDGE_CPU_QPOS_TOL = 1, 1e-4
+BRIDGE_FALLS_THROUGH = ("bridge_plate_objaverse_larger",)
+BRIDGE_CELL_TOL = 0.01  # m: a settled object's distance from its grid cell
+# the profiler takes ~50 s to read a reset's ~190,000 records and ~90 s for a
+# control step's ~395,000 (H100 80GB HBM3, 700 W), more
+# than the script has room for: resets and control steps run under torch's
+# sync check, and BRIDGE_PROFILE_SUBSTEPS substeps of the control step are
+# profiled on its data
+BRIDGE_PROFILE_SUBSTEPS = 5
+# phases 45 and 46 are split over two processes: phase 45 and two twins
+# beside phases 14, 18, 20 and 21, the other two twins beside phases 32-34
+BRIDGE_EARLY, BRIDGE_LATE = BRIDGE_TWINS[0::2], BRIDGE_TWINS[1::2]
+SCENE_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and the "
+                "processes of phases 23, 24 and 26 and of phases 39 and 30)")
+BRIDGE_SHARED = (" (in a process of its own beside phases 32-34, their processes and the process of phases 42 "
+                 "and 44)")
+# phase 47: SceneManipulation rgb, the base camera and the Fetch's two
+SCENE_RGB = ("SceneManipulation-v1", 1024, 5)
+# phase 48: the bridge twins rgb+segmentation at their 640x480 camera, in
+# phase 46's second process (host-bound: ~100 substeps a control step), the
+# kernel's times taken in this process after it: (env, envs, control steps);
+# BRIDGE_PLAIN_ENVS envs of each through the plain version
+BRIDGE_RGB_CELLS = (("PutCarrotOnPlateInScene-v1", 512, 3), ("PutEggplantInBasketScene-v1", 64, 1),
+                    ("PutSpoonOnTableClothInScene-v1", 64, 1),
+                    ("StackGreenCubeOnYellowCubeBakedTexInScene-v1", 64, 1))
+BRIDGE_PLAIN_ENVS = 4
+BRIDGE_FRAME = (480, 640)
 SEG_AGREE_MIN = 0.999  # re-render seg agreement bound (the kernel is bit-exact: expect 1.0)
 CUBE_WEIGHT = 0.064 * 9.81  # PickCube's 4 cm cube of density 1000, in N
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 instructions/s
@@ -920,8 +1025,6 @@ def planner_run(torch, dev, make, card, uid, n_envs, obs_mode, seed, kernel=None
     """One batch of the scripted solution: (env, success rate). Host syncs
     are counted with torch's sync debug mode, and the kernel's launches
     from the batch's reset on, when given the kernel."""
-    import warnings
-
     from maniskill_tpu_torch.examples.motionplanning.panda_solver import PandaMotionPlanningSolver
     from maniskill_tpu_torch.examples.motionplanning.solutions import SOLUTIONS
 
@@ -1584,32 +1687,35 @@ def anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths
 
 
 def dexterity_cpu_parity(torch, dev, make, uid, state, card, control_mode="pd_joint_delta_pos", mount=False,
-                         qpos_tol=DEX_CPU_QPOS_TOL):
+                         qpos_tol=DEX_CPU_QPOS_TOL, steps=DEX_CPU_STEPS, **make_kw):
     """The first DEX_CPU_ENVS envs of ``state`` on the card and in the port
-    on the CPU: fresh envs of that width reset to it (both solvers start
-    cold) take DEX_CPU_STEPS zero-action steps; qpos within ``qpos_tol``
-    and obs within DEX_CPU_OBS_TOL, and with ``mount`` the camera mount's
-    pose (handed over with the state) within ``qpos_tol``. Returns (qpos
-    gap, obs gap)."""
+    on the CPU: fresh envs of that width (``make_kw`` passed to ``make``;
+    the task's own control mode if ``control_mode`` is None) reset to it
+    (both solvers start cold) take ``steps`` zero-action steps; qpos within
+    ``qpos_tol`` and obs within DEX_CPU_OBS_TOL, and with ``mount`` the
+    camera mount's pose (handed over with the state) within ``qpos_tol``.
+    Returns (qpos gap, obs gap)."""
     m = DEX_CPU_ENVS
+    if control_mode is not None:
+        make_kw["control_mode"] = control_mode
     out = []
     for d in (dev, torch.device("cpu")):
-        env = make(uid, num_envs=m, obs_mode="state", control_mode=control_mode, device=d)
+        env = make(uid, num_envs=m, obs_mode="state", device=d, **make_kw)
         base = env.unwrapped
         zero = torch.zeros((m,) + tuple(base.single_action_space.shape), device=d)
         env.reset(seed=0, options=dict(reset_to_env_states=_first_envs(state, m, d)))
-        for _ in range(DEX_CPU_STEPS):
+        for _ in range(steps):
             obs, *_ = env.step(zero)
         out.append([base.scene.data.qpos.cpu(), obs.cpu()] + ([base.camera_mount.pose.raw_pose.cpu()] if mount else []))
         del env, base
     gaps = [float((a - b).abs().max()) for a, b in zip(*out)] + [0.0]
     q_gap, o_gap, m_gap = gaps[:3]
     check(q_gap <= qpos_tol and o_gap <= DEX_CPU_OBS_TOL and m_gap <= qpos_tol,
-          f"{uid}: the card's first {m} envs part from the CPU's after {DEX_CPU_STEPS} steps by {q_gap:.3g} "
+          f"{uid}: the card's first {m} envs part from the CPU's after {steps} steps by {q_gap:.3g} "
           f"(qpos, tolerance {qpos_tol}), {o_gap:.3g} (obs, tolerance {DEX_CPU_OBS_TOL}), {m_gap:.3g} "
           f"(camera mount)")
     mounted = f", the camera mount's pose within {m_gap:.3g}" if mount else ""
-    print(f"  {uid}: the card's first {m} envs and the CPU port from one state, {DEX_CPU_STEPS} zero-action "
+    print(f"  {uid}: the card's first {m} envs and the CPU port from one state, {steps} zero-action "
           f"steps: qpos within {q_gap:.3g} (tolerance {qpos_tol}), obs within {o_gap:.3g} (tolerance "
           f"{DEX_CPU_OBS_TOL}){mounted} {card}")
     return q_gap, o_gap
@@ -2046,8 +2152,6 @@ def draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     """Phase 43: DrawTriangle rgb at its own 320x240 camera through the
     kernel, every ink dot in the scene. Returns the kernel's max depth error
     against the plain version."""
-    import warnings
-
     from maniskill_tpu_torch.utils.timing import cuda_ms
 
     uid, n_envs, n_steps = DRAW_RGB
@@ -2068,20 +2172,13 @@ def draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     env.reset(seed=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for _ in range(n_steps):
-                obs, *_ = env.step(zero)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    with sync_guard(torch, f"{name}, {n_steps} steps"):
+        for _ in range(n_steps):
+            obs, *_ = env.step(zero)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     launches = kernel.launches
-    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
     check(launches == 1 + n_steps, f"{name}: kernel launches {launches} != resets + steps {1 + n_steps}")
-    check(not syncs, f"{name}: {len(syncs)} host syncs in {n_steps} steps, at {collections.Counter(syncs)}")
     rgb = obs["sensor_data"]["base_camera"]["rgb"]
     check(tuple(rgb.shape) == (n_envs, H, W, 3) and rgb.dtype == torch.uint8, f"{name}: rgb {tuple(rgb.shape)}")
     check(bool(torch.isfinite(obs["agent"]["qpos"]).all()), f"{name}: agent obs not finite")
@@ -3124,6 +3221,383 @@ def rfcl_sb3_worker(tmp: str, card: str):
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def sync_guard(torch, what: str):
+    """Fail if the block makes a synchronizing CUDA call: a stream or event
+    sync, or a blocking copy between host and device (torch's sync debug
+    mode flags both; a host-to-device copy of pageable memory synchronizes)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"{what}: {len(syncs)} host syncs, at {collections.Counter(syncs)}")
+
+
+def finite_steps_hook(torch, rec):
+    """A ``state_cell`` hook: each timed step's obs and reward finite and
+    contact.overflow 0 in every env, queued on the device into ``rec``."""
+    def after(base, i, out):
+        if i >= 0:
+            rec.append(torch.isfinite(out[0]).all() & torch.isfinite(out[1]).all()
+                       & (base.scene.data.contact.overflow == 0).all())
+    return after
+
+
+def scene_state_phase(torch, dev, make, card):
+    """Phase 45: SceneManipulation-v1 (ReplicaCAD) and ProcTHOR's last layout
+    at SCENE_ENVS, the other AI2THOR builders at SCENE_OTHER_ENVS, and
+    PickClutterYCB with the Fetch, state mode, zero actions."""
+    cells = ([(uid, SCENE_ENVS, SCENE_STEPS, kw) for uid, kw in SCENE_TIMED]
+             + [(uid, SCENE_OTHER_ENVS, SCENE_OTHER_STEPS, {}) for uid in SCENE_OTHERS]
+             + [(CLUTTER_FETCH[0], CLUTTER_FETCH[1], CLUTTER_FETCH[2], {"robot_uids": "fetch"})])
+    for uid, n, n_steps, kw in cells:
+        rec = []
+        env = state_cell(torch, dev, make, card, uid, n, n_steps, torch.zeros(n, FETCH_ACTION, device=dev),
+                         after=finite_steps_hook(torch, rec), **kw)
+        base = env.unwrapped
+        check(base.agent.uid == "fetch", f"{uid}: robot {base.agent.uid}")
+        check(bool(torch.stack(rec).all()), f"{uid}: obs or reward not finite, or a contact overflow, in a step")
+        builder = type(getattr(base, "scene_builder", None)).__name__
+        print(f"  {uid} x{n} ({builder}{', ' + str(kw) if kw else ''}): obs and rewards finite and "
+              f"contact.overflow 0 in every env and step; {len(base.scene.actors)} actors")
+        if (uid, kw) in SCENE_TIMED:
+            dexterity_cpu_parity(torch, dev, make, uid, base.get_state_dict(), card, qpos_tol=SCENE_CPU_QPOS_TOL,
+                                 **kw)
+        del env, base
+
+
+def bridge_state_phase(torch, dev, make, card, twins):
+    """Phase 46: the BridgeData v2 ``twins`` at BRIDGE_ENVS in state mode:
+    make, a masked reset of every env (the 50-substep settle inside) and
+    timed control steps under the sync check, the settled objects in their
+    grid cells, a partial reset, 5 profiled substeps, and the first envs
+    against the CPU port."""
+    from maniskill_tpu_torch import physics as phys
+    from maniskill_tpu_torch.envs.tasks.digital_twins.bridge_dataset_eval.base_env import (SETTLE_SUBSTEPS,
+                                                                                           TABLE_TOP_Z)
+    from maniskill_tpu_torch.utils.timing import profile_calls
+
+    n = BRIDGE_ENVS
+    action = torch.tensor(BRIDGE_ACTION, device=dev).expand(n, 7).contiguous()
+    for uid in twins:
+        t0 = time.perf_counter()
+        env = make(uid, num_envs=n, obs_mode="state", device=dev)
+        base = env.unwrapped
+        base.agent.controller.controllers["arm"].kinematics  # the IK's tables, built at their first use
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t0
+        substeps = base.sim_config.sim_steps_per_control
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        seeds = torch.arange(n, dtype=torch.int64, device=dev) + 1000 * (BRIDGE_TWINS.index(uid) + 1)
+        # the masked reset a rollout runs, on device tensors
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_guard(torch, f"{uid} reset"):
+            base._reset_impl(mask, seeds)
+        torch.cuda.synchronize()
+        reset_ms = (time.perf_counter() - t0) * 1e3
+
+        # the settle: each object in its grid cell and on the arena (the plate
+        # stand-in falls through, as in the JAX package); their speeds printed
+        grid = base._xyz_grid  # (G, n_obj, 3)
+        settled = [base.scene.get_extra("src_xyz_settle"), base.scene.get_extra("tgt_xyz_settle")]
+        cell_gap = torch.stack([torch.cdist(p[:, :2], grid[:, i, :2]) for i, p in enumerate(settled)]).amax(0)
+        cell_gap = cell_gap.amin(1)  # (B,): the nearest spawn config over both objects
+        check(float(cell_gap.max()) <= BRIDGE_CELL_TOL,
+              f"{uid}: a settled object {float(cell_gap.max()):.4f} m from its spawn config's cells")
+        rest = []
+        for name, actor in base.objs.items():
+            z, speed = actor.pose.p[:, 2], actor.linear_velocity.norm(dim=-1)
+            if name in BRIDGE_FALLS_THROUGH:
+                rest.append(f"{name} below the table top in {int((z < TABLE_TOP_Z).sum())} of {n} envs (no "
+                            f"cylinder-box narrowphase in either package)")
+                continue
+            check(bool((z >= TABLE_TOP_Z - 1e-3).all()), f"{uid}: {name} below the arena's top (z min "
+                  f"{float(z.min()):.4f})")
+            rest.append(f"{name} on the arena (z {float(z.min()):.4f}-{float(z.max()):.4f}, speed <= "
+                        f"{float(speed.max()):.2e} m/s)")
+
+        # a partial reset of the even envs: the settle's merge leaves every
+        # field of the odd envs' Data bit-equal; the reset's closing forward
+        # pass then recomputes every env's contacts (as in the JAX package),
+        # so through the whole reset their state is held, the contacts aside
+        half = torch.arange(n, device=dev) % 2 == 0
+        scene = base.scene
+        before = scene.data
+        scene._reset_mask = half
+        base.agent.reset(base._rest_qpos.expand(n, -1))
+        base._settle(SETTLE_SUBSTEPS)
+        scene._reset_mask = None
+        settle_diff = [k for k, a, b in data_leaves(torch, before, scene.data) if not torch.equal(a[~half], b[~half])]
+        check(not settle_diff, f"{uid}: the settle changed the envs it does not reset in {settle_diff}")
+        scene.bind(before)
+        base._reset_impl(half, seeds + 7)
+        reset_diff = [k for k, a, b in data_leaves(torch, before, scene.data)
+                      if not k.startswith("contact.") and not torch.equal(a[~half], b[~half])]
+        check(not reset_diff, f"{uid}: a partial reset changed the other envs' {reset_diff}")
+
+        # control steps of a small end-effector move with the gripper closing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_guard(torch, f"{uid} control steps"):
+            for _ in range(BRIDGE_STEPS):
+                out = env.step(action)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / BRIDGE_STEPS
+        obs, reward, _, _, info = out
+        check(bool(torch.isfinite(obs).all()) and int(base.scene.data.contact.overflow.max()) == 0,
+              f"{uid}: obs not finite or a contact overflow")
+        stats = ("success", "src_on_target", "is_src_obj_grasped", "consecutive_grasp")
+        check(all(k in info and info[k].dtype == torch.bool and info[k].shape == (n,) for k in stats),
+              f"{uid}: info {sorted(info)} lacks a bool statistic of {stats}")
+        d = base.scene.data
+        _, sprof = profile_calls(lambda: phys.step(base.scene.model, d), BRIDGE_PROFILE_SUBSTEPS)
+        check(sprof["syncs"] == 0 and sprof["h2d_copies"] == 0,
+              f"{uid}: a physics substep makes {sprof['syncs']} syncs, {sprof['h2d_copies']} copies")
+        print(f"{uid} state x{n} ({substeps} substeps a control step): make {make_s:.2f} s; reset (the "
+              f"{SETTLE_SUBSTEPS}-substep settle inside) {reset_ms:.1f} ms, 0 host syncs; "
+              f"{BRIDGE_STEPS} control steps {step_s * 1e3:.1f} ms each ({n / step_s:.1f} env-steps/s, eager), 0 host "
+              f"syncs; {BRIDGE_PROFILE_SUBSTEPS} physics substeps profiled on the step's data: "
+              f"{sprof['launches']:.0f} launches, 0 stream/event syncs, 0 host-to-device copies per substep, device "
+              f"kernels {sprof['device_kernel_ms']:.2f} ms of {sprof['wall_ms']:.2f} ms; overflow 0, obs finite, "
+              f"{', '.join(stats)} bool {card}")
+        print(f"  {uid}: every env's settled objects within {float(cell_gap.max()):.2e} m of a spawn config's cells; "
+              + "; ".join(rest) + f"; a partial reset of {int(half.sum())} envs: the settle left the others' Data "
+              f"bit-equal in every field, the reset their state (contacts recomputed by its forward pass)")
+        dexterity_cpu_parity(torch, dev, make, uid, base.get_state_dict(), card, control_mode=None,
+                             qpos_tol=BRIDGE_CPU_QPOS_TOL, steps=BRIDGE_CPU_STEPS)
+        del env, base, before, d
+
+
+def data_leaves(torch, a, b, prefix=""):
+    """(name, a's tensor, b's tensor) over two ``Data`` (or ``Contact``)
+    trees, their extras included."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            yield prefix + f.name, x, y
+        elif isinstance(x, dict):
+            for k in x:
+                yield f"{prefix}{f.name}.{k}", x[k], y[k]
+        elif x is not None and dataclasses.is_dataclass(x):
+            yield from data_leaves(torch, x, y, prefix + f.name + ".")
+
+
+def scene_bridge_worker(card: str, scenes: bool, twins, rgb_cells=()):
+    """Phase 45 (if ``scenes``), phase 46 on ``twins`` and phase 48's
+    ``rgb_cells`` in a process of their own. Returns their seconds, and per
+    rgb cell (launches, its last frame's kernel inputs on the host, the max
+    1/z error)."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    torch.set_num_threads(2)  # the CPU port's parity steps, beside the other processes
+    dev = torch.device("cuda")
+    seconds, rgb = {}, {}
+    t0 = time.perf_counter()
+    if scenes:
+        scene_state_phase(torch, dev, make, card)
+        seconds["45"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    bridge_state_phase(torch, dev, make, card, twins)
+    seconds["46 " + ", ".join(u.split("-")[0] for u in twins)] = time.perf_counter() - t0
+    if rgb_cells:
+        t0 = time.perf_counter()
+        tr.KERNEL.build()
+        for uid, n_envs, n_steps in rgb_cells:
+            launches, inputs, err = bridge_rgb_cell(torch, dev, make, card, tr, tiled_inputs, geom_poses, uid,
+                                                    n_envs, n_steps)
+            rgb[uid] = (launches, [x.cpu() if isinstance(x, torch.Tensor) else x for x in inputs], err)
+        seconds["48"] = time.perf_counter() - t0
+    return seconds, rgb
+
+
+def scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 47: SceneManipulation-v1 rgb at 1024 envs, the base camera and
+    the Fetch's head and hand cameras. Returns the kernel's max depth error
+    against the plain version."""
+    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+
+    uid, n_envs, n_steps = SCENE_RGB
+    name = f"{uid} rgb x{n_envs}"
+    kernel = tr.KERNEL
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
+    base = env.unwrapped
+    zero = torch.zeros(n_envs, FETCH_ACTION, device=dev)
+    env.reset(seed=0)
+    env.step(zero)
+    torch.cuda.synchronize()
+    cams = list(base._sensors)
+    check(cams == ["base_camera", "fetch_head", "fetch_hand"], f"{name}: cameras {cams}")
+    print(f"{name}: built and warmed up in {time.perf_counter() - t0:.2f} s")
+    kernel.launches = 0
+    env.reset(seed=0)
+    step_s = timed_steps(env, zero, n_steps - 1)
+    obs, *_ = env.step(zero)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(launches == len(cams) * (1 + n_steps),
+          f"{name}: kernel launches {launches} != cameras x (resets + steps) {len(cams) * (1 + n_steps)}")
+    check(int(base.scene.data.contact.overflow.max()) == 0, f"{name}: contact overflow")
+    err = 0.0
+    for cam_name in cams:
+        rgb = obs["sensor_data"][cam_name]["rgb"]
+        check(tuple(rgb.shape) == (n_envs, 128, 128, 3) and rgb.dtype == torch.uint8,
+              f"{name} {cam_name}: rgb is {tuple(rgb.shape)} {rgb.dtype}")
+        inputs, e, agree = rerender_check(base, cam_name, 16, tr, tiled_inputs, geom_poses, rgb, f"{name} {cam_name}")
+        err = max(err, e)
+        times = kernel_times(kernel, tr, inputs, 128, 128)
+        table, valid = tr.face_records(*inputs)
+        _, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+        paths[f"scene_rgb_{n_envs}_{cam_name}"] = dict(launches=launches // len(cams), **times)
+        print(f"{name} {cam_name}: the last frame of 16 envs re-rendered through the plain version: seg "
+              f"agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; faces per band mean "
+              f"{counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene {inputs[0].shape[1]}; "
+              f"raster kernel {times['ms']:.4f} ms/frame vs plain {times['plain_ms']:.3f} ms, bound "
+              f"{times['bound_ms']:.4f} ms ({times['bound_by']}, {times['bound_ms'] / times['ms']:.3f} of it) {card}")
+        del inputs, table, counts
+    frame_ms = cuda_ms(lambda: base._sensors["base_camera"].get_obs(rgb=True), 5)
+    kernel.launches = launches
+    print(f"{name}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} ms/step, "
+          f"eager, three 128x128 cameras), kernel launches {launches} (cameras x (resets + steps)), dropped 0; "
+          f"base_camera's whole render {frame_ms:.4f} ms/frame {card}")
+    return err
+
+
+def bridge_frame_check(torch, base, tr, tiled_inputs, geom_poses, obs, name, plain_envs):
+    """The last frame of a bridge twin's camera: the whole batch again
+    through the kernel, ``plain_envs`` envs through the plain version (1/z
+    bit-equal, seg and rgb equal: the raw frame, before the composite); the
+    segmentation obs the kernel's, and the rgb obs the composite
+    where(keep[seg], raw rgb, overlay) in every env. Returns (inputs, max
+    |1/z| error, (B,) carrot/robot/plate pixel counts)."""
+    cam_name = "3rd_view_camera"
+    cam = base._sensors[cam_name]
+    H, W = cam.config.height, cam.config.width
+    mesh = cam._get_mesh(tuple(base._hidden_objects))
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj, H, W,
+                          lights=base.scene.lights)
+    before = tr.KERNEL.launches
+    zk, sk, rk, dk = tr.rasterize_tiles(*inputs, H, W)
+    tr.KERNEL.launches = before  # comparison launches are not main-path launches
+    m = plain_envs
+    zp, sp, rp, dp = tr.rasterize_tiles_ref(*[a[:m] for a in inputs[:5]], inputs[5], H, W)
+    check(int(dk) == 0 and int(dp) == 0, f"{name}: dropped {int(dk)} (kernel), {int(dp)} (plain)")
+    check(bool(torch.equal(zk[:m].view(torch.int32), zp.view(torch.int32))),
+          f"{name}: 1/z not bit-equal to the plain version's, max |d| {float((zk[:m] - zp).abs().max())}")
+    check(bool(torch.equal(sk[:m], sp)) and bool(torch.equal(rk[:m], rp)),
+          f"{name}: seg or rgb differs from the plain version's")
+    seg_obs = obs["sensor_data"][cam_name]["segmentation"][..., 0]
+    rgb_obs = obs["sensor_data"][cam_name]["rgb"]
+    check(tuple(rgb_obs.shape) == (base.num_envs, H, W, 3) and rgb_obs.dtype == torch.uint8,
+          f"{name}: rgb {tuple(rgb_obs.shape)} {rgb_obs.dtype}")
+    seg = torch.where(sk >= 0, sk, 0)
+    check(bool(torch.equal(seg.to(torch.int16), seg_obs)), f"{name}: the segmentation obs is not the kernel's")
+    raw = (torch.clamp(rk, 0, 1) * 255).to(torch.uint8)
+    keep = base._keep_lut[seg.long()][..., None]
+    composite = torch.where(keep, raw, base._rgb_overlay_images[cam_name][None])
+    differ = int((composite != rgb_obs).any(-1).sum())
+    check(differ == 0, f"{name}: the rgb obs differs from where(keep[seg], raw rgb, overlay) on {differ} px")
+    ids = {"robot": [link.per_scene_id for link in base.agent.robot.links]}
+    ids.update({obj: [actor.per_scene_id] for obj, actor in base.objs.items()})
+    seen = {k: torch.isin(sk, torch.tensor(v, device=sk.device)).sum((1, 2)) for k, v in ids.items()}
+    return inputs, float((zk[:m] - zp).abs().max()), seen, float(keep.float().mean())
+
+
+def bridge_rgb_cell(torch, dev, make, card, tr, tiled_inputs, geom_poses, uid, n_envs, n_steps):
+    """A bridge twin in rgb+segmentation at ``n_envs`` and 640x480 through
+    the kernel and the greenscreen: reset and ``n_steps`` control steps, the
+    kernel's launches, 0 host syncs in the steps, the last frame's checks
+    (``bridge_frame_check``), the source object and the robot in view in
+    every env. Returns (launches, the last frame's kernel inputs, the max
+    1/z error against the plain version)."""
+    kernel = tr.KERNEL
+    name = f"{uid} rgb+segmentation x{n_envs}"
+    t0 = time.perf_counter()
+    env = make(uid, num_envs=n_envs, obs_mode="rgb+segmentation", device=dev)
+    base = env.unwrapped
+    torch.cuda.synchronize()
+    cam = base._sensors["3rd_view_camera"]
+    H, W = cam.config.height, cam.config.width
+    check((W, H) == (640, 480) and base.overlay_sources == {"3rd_view_camera": "procedural"},
+          f"{name}: camera {W}x{H}, overlays {base.overlay_sources}")
+    make_s = time.perf_counter() - t0
+    action = torch.tensor(BRIDGE_ACTION, device=dev).expand(n_envs, 7).contiguous()
+    base.agent.controller.controllers["arm"].kinematics  # the IK's tables, built at their first use
+    kernel.launches = 0
+    env.reset(seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sync_guard(torch, f"{name}, {n_steps} control steps"):
+        for _ in range(n_steps):
+            obs, *_ = env.step(action)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_steps
+    launches = kernel.launches
+    check(launches == 1 + n_steps, f"{name}: kernel launches {launches} != resets + steps {1 + n_steps}")
+    check(int(base.scene.data.contact.overflow.max()) == 0, f"{name}: contact overflow")
+    inputs, err, seen, kept = bridge_frame_check(torch, base, tr, tiled_inputs, geom_poses, obs, name,
+                                                 BRIDGE_PLAIN_ENVS)
+    views = []
+    for k, px in seen.items():
+        if k == "robot" or k == base.source_obj_name:
+            check(bool((px > 0).all()), f"{name}: the {k} out of view in {int((px == 0).sum())} envs")
+        views.append(f"{k} in view in {int((px > 0).sum())} of {n_envs} envs")
+    _, counts, _ = tr.bin_faces(inputs[0], inputs[1], tr.face_records(*inputs)[1], H, W)
+    print(f"{name}: make {make_s:.2f} s (its reset's settle inside); {n_steps} control steps {step_s * 1e3:.1f} ms "
+          f"each ({n_envs / step_s:.1f} env-steps/s, eager); kernel launches {launches} (resets + steps), 0 host "
+          f"syncs in the steps, dropped 0; the last raw frame of {BRIDGE_PLAIN_ENVS} envs re-rendered through the "
+          f"plain version: 1/z bit-equal, seg and rgb equal; the composite where(keep[seg], raw rgb, overlay) in "
+          f"every env ({kept:.3f} of the pixels kept); " + ", ".join(views) + f"; faces per env "
+          f"{inputs[0].shape[1]}, per band mean {counts.float().mean().item():.1f}, max {int(counts.max())} {card}")
+    return launches, inputs, err
+
+
+def bridge_rgb_times(torch, dev, tr, paths, rgb, card):
+    """Phase 48's kernel times, on each bridge cell's last frame from phase
+    46's second process, with the card to this process alone. Returns the
+    cells' max 1/z error against the plain version."""
+    from maniskill_tpu_torch.utils.timing import cuda_ms
+
+    H, W = BRIDGE_FRAME
+    m = BRIDGE_PLAIN_ENVS
+    kernel = tr.KERNEL
+    err = 0.0
+    for uid, (launches, host_inputs, e) in rgb.items():
+        inputs = [x.to(dev) if isinstance(x, torch.Tensor) else x for x in host_inputs]
+        n_envs = inputs[0].shape[0]
+        table, valid = tr.face_records(*inputs)
+        idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, H, W)
+        before = kernel.launches
+        k_ms = cuda_ms(lambda: kernel(table, idx, counts, H, W), 20)
+        km_ms = cuda_ms(lambda: kernel(table[:m], idx[:m], counts[:m], H, W), 20)
+        pm_ms = cuda_ms(lambda: tr.raster_bands_ref(table[:m], idx[:m], counts[:m], H, W), 1)
+        frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, H, W), 5)
+        kernel.launches = before  # timing launches are not main-path launches
+        bound_ms, bound_by = raster_bound_ms(table, counts, H, W)
+        paths[f"bridge_rgbseg_{uid.split('-')[0]}_{n_envs}"] = dict(
+            launches=launches, ms=k_ms, plain_ms=pm_ms, plain_envs=m, ms_plain_envs=km_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+        print(f"raster kernel ({uid}, {n_envs}x{H}x{W}, its last frame from phase 48's process): {k_ms:.4f} ms/frame, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it); {m} envs: kernel {km_ms:.4f} ms vs "
+              f"plain {pm_ms:.3f} ms; tiled render (binning + kernel) {frame_ms:.4f} ms/frame {card}")
+        err = max(err, e)
+    return err
+
+
 def data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, stamp):
     """Phases 32-38. The two per-episode replays (one env, ~0.3 s a step) and
     the last trainers (phases 35-38) run in processes of their own: RFCL and
@@ -3470,14 +3944,16 @@ def main(device: str = "cuda"):
     # host-bound state paths overlap, each launching from a process of its
     # own while the card stays mostly idle: phase 16's planner batches (4
     # processes), phases 23, 24 and 26 (one process), phases 39 and 30 (one
-    # process, the two balancing each other's seconds) and phases 14, 18,
-    # 20 and 21 here; then TD-MPC2 (its planner is device-bound), the rest of
+    # process, the two balancing each other's seconds), phase 45 and two of
+    # phase 46's twins (one process) and phases 14, 18, 20 and 21 here; then
+    # TD-MPC2 (its planner is device-bound), the rest of
     # phases 16-17 (the planner CLI alone) and the rgb phases, whose kernel
     # times are taken, with the card to this process alone
     planner = planner_pool_start(card)
-    side_pool = spawn_pool(2)
+    side_pool = spawn_pool(3)
     side = side_pool.submit(side_worker, card + SIDE_SHARED)
     dex = side_pool.submit(dexterity_worker, card + DEX_SHARED)
+    early = side_pool.submit(scene_bridge_worker, card + SCENE_SHARED, True, BRIDGE_EARLY)
     try:
         shared = card + PLANNER_SHARED
         ee_control_phase(torch, dev, make, shared)
@@ -3490,12 +3966,13 @@ def main(device: str = "cuda"):
         stamp("phase 21")
         side_s = side.result()
         dex_s = dex.result()
+        early_s, _ = early.result()
     finally:
         side_pool.shutdown(wait=True, cancel_futures=True)
         planner[0].shutdown(wait=True, cancel_futures=True)  # its results stay with its futures
     stamp("phases 23, 24, 26 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in side_s.items())
-          + " in their process) and 39, 30 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in dex_s.items())
-          + " in theirs)")
+          + " in their process), 39, 30 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in dex_s.items())
+          + " in theirs) and 45, 46 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in early_s.items()) + " in theirs)")
     tdmpc2_phase(torch, dev, make, card)
     stamp("phase 31")
     max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, planner))
@@ -3515,23 +3992,31 @@ def main(device: str = "cuda"):
     stamp("phase 41")
     max_err = max(max_err, draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 43")
+    max_err = max(max_err, scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 47")
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
     stamp("phase 28")
     max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 29")
 
     # ---- phases 32-38: record, replay, learn from the files -------------------
-    # beside them, phases 42 and 44 (slice 14's state paths and planner) in a
-    # process of their own
-    slice_pool = spawn_pool(1)
+    # beside them, phases 42 and 44 (slice 14's state paths and planner) and
+    # phase 46's last two twins with phase 48 (host-bound bridge control
+    # steps; the kernel's times taken here after), each in a process of its own
+    slice_pool = spawn_pool(2)
     try:
         slice14 = slice_pool.submit(slice14_worker, card + SLICE14_SHARED)
+        late = slice_pool.submit(scene_bridge_worker, card + BRIDGE_SHARED, False, BRIDGE_LATE, BRIDGE_RGB_CELLS)
         max_err = max(max_err, data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths,
                                                        stamp))
         slice_s = slice14.result()
+        stamp("phases 42 and 44 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice_s.items()) + " in their process)")
+        late_s, late_rgb = late.result()
     finally:
         slice_pool.shutdown(wait=True, cancel_futures=True)
-    stamp("phases 42 and 44 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice_s.items()) + " in their process)")
+    stamp("phases 46 and 48 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in late_s.items()) + " in their process)")
+    max_err = max(max_err, bridge_rgb_times(torch, dev, tr, paths, late_rgb, card))
+    stamp("phase 48's kernel times")
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
     print(json.dumps({"kernels": [{

@@ -18,6 +18,7 @@ from .unitree_g1 import (UnitreeG1, UnitreeG1Simplified, UnitreeG1UpperBody, Uni
 from .unitree_go import UnitreeGo2, UnitreeGo2Simplified
 from .unitree_h1 import UnitreeH1, UnitreeH1Simplified, UnitreeH1WithHandsUpperBodyOnly
 from .ur_e import UR10e
+from .widowx import WidowX250S, WidowX250SBridgeDatasetFlatTable, WidowX250SBridgeDatasetSink
 from .widowxai import WidowXAI, WidowXAIWristCam
 from .xarm import XArm7, XArm7Ability
 from .xarm6 import XArm6NoGripper, XArm6NoGripperWristCamera, XArm6Robotiq, XArm6RobotiqWristCamera
@@ -30,6 +31,7 @@ __all__ = [
     "Panda", "PandaStick", "PandaWristCam", "SO100", "Stompy", "TriFingerPro", "UnitreeG1", "UnitreeG1Simplified",
     "UnitreeG1UpperBody", "UnitreeG1UpperBodyRightArm", "UnitreeG1UpperBodyWithHeadCamera", "UnitreeGo2",
     "UnitreeGo2Simplified", "UnitreeH1", "UnitreeH1Simplified", "UnitreeH1WithHandsUpperBodyOnly", "UR10e",
-    "WidowXAI", "WidowXAIWristCam", "XArm6NoGripper", "XArm6NoGripperWristCamera", "XArm6Robotiq",
-    "XArm6RobotiqWristCamera", "XArm7", "XArm7Ability", "Xlerobot",
+    "WidowX250S", "WidowX250SBridgeDatasetFlatTable", "WidowX250SBridgeDatasetSink", "WidowXAI", "WidowXAIWristCam",
+    "XArm6NoGripper", "XArm6NoGripperWristCamera", "XArm6Robotiq", "XArm6RobotiqWristCamera", "XArm7", "XArm7Ability",
+    "Xlerobot",
 ]

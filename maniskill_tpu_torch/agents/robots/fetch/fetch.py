@@ -168,6 +168,12 @@ class Fetch(BaseAgent):
     def tcp(self):
         return self.robot.links_map["gripper_link"]
 
+    @property
+    def tcp_pose(self):
+        # PickClutterYCB's state obs reads it (the JAX package's Fetch lacks
+        # it, so its PickClutterYCB runs the Fetch with obs_mode "none" only)
+        return self.tcp.pose
+
     def is_grasping(self, object=None, min_force=0.5, max_angle=85.0):
         """Both fingers push on ``object`` with at least ``min_force`` N, each
         within ``max_angle`` degrees of its closing direction."""

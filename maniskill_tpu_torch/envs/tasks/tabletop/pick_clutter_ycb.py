@@ -32,7 +32,7 @@ MAX_HULLS = 4
 
 @register_env("PickClutterYCB-v1", max_episode_steps=100)
 class PickClutterYCBEnv(BaseEnv):
-    SUPPORTED_ROBOTS = ["panda"]
+    SUPPORTED_ROBOTS = ["panda", "fetch"]
     SUPPORTED_REWARD_MODES = ("none",)
 
     def __init__(self, *args, robot_uids="panda", robot_init_qpos_noise=0.02, **kwargs):

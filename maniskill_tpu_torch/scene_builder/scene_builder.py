@@ -2,7 +2,9 @@
 maniskill_tpu/scene_builder/scene_builder.py)."""
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, List, Optional
+from typing import TYPE_CHECKING, Any, List, Optional
+
+import numpy as np
 
 if TYPE_CHECKING:
     from ..envs.base_env import BaseEnv
@@ -11,6 +13,13 @@ if TYPE_CHECKING:
 class SceneBuilder:
     """Build-vs-initialize split: ``build`` constructs static scene content
     once per reconfigure; ``initialize`` sets poses/joints every episode."""
+
+    robot_init_qpos_noise: float = 0.02
+    build_configs: Optional[List[Any]] = None
+    init_configs: Optional[List[Any]] = None
+    # the agent's default spawn (x y z qw qx qy qz); a builder overrides it to
+    # stand the robot in free floor space (SceneManipulationEnv reads it)
+    robot_initial_pose = np.array([0.0, 0.0, 0.02, 1, 0, 0, 0])
 
     def __init__(self, env: "BaseEnv", robot_init_qpos_noise: float = 0.02):
         self.env = env

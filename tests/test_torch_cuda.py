@@ -442,3 +442,49 @@ def test_so100_grasp_cube_greenscreen_through_the_kernel(cuda):
     for ids in ([base.cube.per_scene_id], [link.per_scene_id for link in base.agent.robot.links]):
         seen = torch.isin(sp, torch.tensor(ids, device=cuda)).sum((1, 2))
         assert (seen > 0).all(), seen
+
+
+def test_bridge_twin_rgb_segmentation_through_the_kernel(cuda):
+    """PutCarrotOnPlateInScene-v1 rgb+segmentation at 4 envs, its 640x480
+    camera (30 bands of 16 rows): the kernel runs once per frame; on the last
+    frame's inputs it is bit-equal to the plain version (1/z, seg, rgb), the
+    segmentation obs is the plain version's, the composite equals
+    where(keep[seg], plain rgb, overlay), and the carrot and the robot are in
+    view in every env."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    n, H, W, cam_name = 4, 480, 640, "3rd_view_camera"
+    env = make("PutCarrotOnPlateInScene-v1", num_envs=n, obs_mode="rgb+segmentation", device=cuda)
+    base = env.unwrapped
+    assert base.overlay_sources == {cam_name: "procedural"}
+    launches = tr.KERNEL.launches
+    env.reset(seed=0)
+    action = torch.zeros(n, 7, device=cuda)
+    action[:, 2], action[:, 6] = -0.01, -1.0
+    obs, *_ = env.step(action)
+    assert tr.KERNEL.launches == launches + 2
+    cam_obs = obs["sensor_data"][cam_name]
+    rgb, seg = cam_obs["rgb"], cam_obs["segmentation"]
+    assert rgb.shape == (n, H, W, 3) and rgb.dtype == torch.uint8 and rgb.is_cuda
+    cam = base._sensors[cam_name]
+    mesh = cam._get_mesh(tuple(base._hidden_objects))
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj, H, W,
+                          lights=base.scene.lights)
+    zk, sk, rk, dk = tr.rasterize_tiles(*inputs, H, W)
+    zp, sp, rp, dp = tr.rasterize_tiles_ref(*inputs, H, W)
+    assert int(dk) == int(dp) == 0
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32)) and torch.equal(sk, sp) and torch.equal(rk, rp)
+    plain_seg = torch.where(sp >= 0, sp, 0)
+    assert torch.equal(plain_seg.to(torch.int16), seg[..., 0])
+    raw = (torch.clamp(rp, 0, 1) * 255).to(torch.uint8)
+    keep = base._keep_lut[plain_seg.long()][..., None]
+    assert torch.equal(torch.where(keep, raw, base._rgb_overlay_images[cam_name][None]), rgb)
+    carrot = [base.objs["bridge_carrot_generated_modified"].per_scene_id]
+    for ids in (carrot, [link.per_scene_id for link in base.agent.robot.links]):
+        seen = torch.isin(sp, torch.tensor(ids, device=cuda)).sum((1, 2))
+        assert (seen > 0).all(), seen
