@@ -345,6 +345,44 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      phase 46's second process after that phase's twins; the kernel's ms
      per frame against its bound is taken on each cell's last frame in the
      main process after that process ends, with the card to itself.
+ 49. The RoboCasa kitchens in state mode, the Fetch, zero actions, in a
+     process of its own (phase 51 runs in it after) beside phases 14, 18,
+     20 and 21: RoboCasaKitchen-v1 (layout 0) at 1024 envs (make time, 5
+     timed steps, one profiled step with its launches, 0 stream/event syncs
+     and 0 host-to-device copies, overflow 0, obs and reward finite in every
+     step), then RoboCasa_SceneManipulation-v1, RoboCasaOpenDrawer-v1 and
+     RoboCasaPnPCounterToSink-v1 at 1024 (2 steps, the same checks); the
+     first 16 envs of each from one state on the card and in the port on the
+     CPU, 2 zero-action steps, qpos within 1e-5; OpenDrawer's success false
+     in every env with the target drawer at half OPEN_MIN and true past it,
+     PnPCounterToSink's in_basin false with the object above the basin and
+     in_basin and success true with it set into the basin (the teleport
+     oracles of tests/test_robocasa.py); layouts 1-4 at 64 envs, make, reset
+     and 1 step each.
+ 50. RoboCasaKitchen-v1 rgb, 1024 envs, three cameras (base_camera, which
+     sees the whole kitchen, and the Fetch's fetch_head and fetch_hand):
+     reset + 5 steps; kernel launches == cameras x (resets + steps), dropped
+     == 0; the last frame of 16 envs of each camera re-rendered through the
+     plain version (seg agreement >= 0.999, rgb equal); faces per band and
+     the kernel's ms per frame against its bound per camera.
+ 51. Body-body drives, after phase 49 in its process: PushCube-v1 at 4096
+     envs with a world-anchored 6-dof drive on the cube (as the drag CLI
+     builds it) and the arm raised out of its way, the target lifted 0.1 m,
+     then moved 0.1 m in x, 5 control steps after each: the cube within 1
+     cm of the target in every env; one
+     profiled step (launches, 0 syncs, 0 copies); the first 16 envs from one
+     state and target on the card and on the CPU, 2 steps, qpos within 1e-5;
+     then both teleoperation CLIs (examples/teleoperation/drag_object.py and
+     interactive_panda.py) at one env on the card, their key reader fed a
+     script ending in q: the dragged object follows the keys, the Panda's
+     TCP moves along x on w and up on r.
+ 52. A StereoDepthCamera (55 mm baseline, 8-bit disparity) on PickCube-v1 at
+     2048 envs, 128x128: reset + 5 steps with an observation after each, two
+     kernel launches per observation (the left eye, which also gives rgb and
+     segmentation, and the right eye); the last observation's int16 depth of
+     16 envs equal to the plain version's through the same stereo code, the
+     occlusion shadows (foreground pixels invalidated) counted; each eye's
+     kernel ms per frame against its bound.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -356,12 +394,13 @@ per task and phases 30-31 10 and 16 train steps, so that the whole run
 stays well inside its time limit. The host-bound state paths overlap,
 each launching from a process of its own while the card stays mostly idle:
 after phase 15, phase 16's planner batches (4 processes), phases 23, 24
-and 26 (one process), phases 39 and 30 (one process) and phase 45 with
-two of phase 46's twins (one process) run beside phases 14, 18, 20 and 21;
+and 26 (one process), phases 39 and 30 (one process), phase 45 with
+two of phase 46's twins (one process) and phases 49 and 51 (one process)
+run beside phases 14, 18, 20 and 21;
 then TD-MPC2
 (phase 31, whose planner is device-bound), the rest of 16-17 (the planner
-CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41, 43, 47
-with 28 and 29, whose kernel times are taken, with the card to this
+CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41, 43, 47,
+50, 52 with 28 and 29, whose kernel times are taken, with the card to this
 process alone; in phases 32-34 the two per-episode replays, phases 35-38,
 phases 42 and 44, and two of phase 46's twins with phase 48 run in
 processes of their own (phase 48's kernel times are taken after them). A
@@ -559,10 +598,10 @@ SHARED = (" (sharing the card with phase 33's two per-episode replays, phases 35
 # their own: each of these host-bound paths launches its kernels from its own
 # process while the card stays mostly idle
 PLANNER_SHARED = (" (beside phase 16's planner processes, the process of phases 23, 24 and 26, that of phases 39 "
-                  "and 30 and that of phases 45 and 46's first two twins)")
+                  "and 30, that of phases 45 and 46's first two twins and that of phases 49 and 51)")
 SIDE_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
-               "the processes of phases 39 and 30 and of phases 45 and 46)")
-PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26, 30, 39, 45 and 46)"
+               "the processes of phases 39 and 30, of phases 45 and 46 and of phases 49 and 51)")
+PLANNER_BESIDE = " (beside phases 14, 18, 20, 21, 23, 24, 26, 30, 39, 45, 46, 49 and 51)"
 # phases 35-38: the last trainers, in processes of their own beside phases
 # 32-34. DP and ACT train on phase 32's recording (DP's rgb leg on phase 33's
 # re-rendered frames) at their CLIs' defaults for a few epochs and evaluate
@@ -599,7 +638,7 @@ EMPTY_ROBOTS = ("floating_ability_hand_right", "floating_inspire_hand_right", "f
                 "allegro_hand_right", "allegro_hand_left")
 EMPTY_ENVS, EMPTY_STEPS = 256, 3
 DEX_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and "
-              "the processes of phases 23, 24 and 26 and of phases 45 and 46)")
+              "the processes of phases 23, 24 and 26, of phases 45 and 46 and of phases 49 and 51)")
 # phase 39, the arm slice: (env, action width, control mode) at ARM_ENVS,
 # SO100GraspCube with its domain randomization on, and Empty-v1 with each
 # arm robot in every control mode it offers
@@ -672,7 +711,7 @@ BRIDGE_PROFILE_SUBSTEPS = 5
 # beside phases 14, 18, 20 and 21, the other two twins beside phases 32-34
 BRIDGE_EARLY, BRIDGE_LATE = BRIDGE_TWINS[0::2], BRIDGE_TWINS[1::2]
 SCENE_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and the "
-                "processes of phases 23, 24 and 26 and of phases 39 and 30)")
+                "processes of phases 23, 24 and 26, of phases 39 and 30 and of phases 49 and 51)")
 BRIDGE_SHARED = (" (in a process of its own beside phases 32-34, their processes and the process of phases 42 "
                  "and 44)")
 # phase 47: SceneManipulation rgb, the base camera and the Fetch's two
@@ -686,6 +725,37 @@ BRIDGE_RGB_CELLS = (("PutCarrotOnPlateInScene-v1", 512, 3), ("PutEggplantInBaske
                     ("StackGreenCubeOnYellowCubeBakedTexInScene-v1", 64, 1))
 BRIDGE_PLAIN_ENVS = 4
 BRIDGE_FRAME = (480, 640)
+# phase 49: the RoboCasa kitchens in state mode, the Fetch, zero actions:
+# RoboCasaKitchen-v1 (layout 0) timed over ROBOCASA_TIMED's steps, the other
+# three ids at its width over ROBOCASA_OTHER_STEPS, each with a profiled
+# step and its first DEX_CPU_ENVS envs against the CPU port (qpos within
+# ROBOCASA_CPU_QPOS_TOL); layouts 1-4 at ROBOCASA_LAYOUT_ENVS
+ROBOCASA_TIMED = ("RoboCasaKitchen-v1", 1024, 5)
+ROBOCASA_OTHERS = ("RoboCasa_SceneManipulation-v1", "RoboCasaOpenDrawer-v1", "RoboCasaPnPCounterToSink-v1")
+ROBOCASA_OTHER_STEPS = 2
+ROBOCASA_LAYOUT_ENVS = 64
+ROBOCASA_CPU_QPOS_TOL = 1e-5
+# phase 50: RoboCasaKitchen-v1 rgb, every camera of the env: (env, envs, steps)
+KITCHEN_RGB = ("RoboCasaKitchen-v1", 1024, 5)
+# phase 51: PushCube-v1 with a world-anchored drive on the cube (the drag
+# CLI's gains); the target moved by each of DRAG_MOVES (m) in turn, DRAG_STEPS
+# control steps after each; the cube within DRAG_TOL of the target after
+# them in every env; the two teleoperation CLIs at one env fed key scripts
+DRAG = ("PushCube-v1", 4096)
+DRAG_MOVES = ((0.0, 0.0, 0.1), (0.1, 0.0, 0.0))
+DRAG_STEPS, DRAG_TOL, DRAG_CPU_QPOS_TOL = 5, 0.01, 1e-5
+DRAG_SHOULDER = -0.6  # rad: the Panda's shoulder pitched back, its TCP ~0.72 m up
+DRAG_KEYS, PANDA_KEYS = "rrrrrwwwwwq", "wwwrrrq"
+# phases 49 and 51 run in a process of their own beside phases 14, 18, 20
+# and 21
+SLICE16_SHARED = (" (in a process of its own beside phase 16's planner processes, phases 14, 18, 20 and 21 and the "
+                  "processes of phases 23, 24 and 26, of phases 39 and 30 and of phases 45 and 46)")
+# phase 52: a StereoDepthCamera (its 55 mm baseline, 8-bit disparity) on
+# PickCube-v1 in state mode: (env, envs, steps), the image size, and the envs
+# of the last observation held to the plain version through the same stereo code
+STEREO = ("PickCube-v1", 2048, 5)
+STEREO_SIZE = (128, 128)
+STEREO_PLAIN_ENVS = 16
 SEG_AGREE_MIN = 0.999  # re-render seg agreement bound (the kernel is bit-exact: expect 1.0)
 CUBE_WEIGHT = 0.064 * 9.81  # PickCube's 4 cm cube of density 1000, in N
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 instructions/s
@@ -3423,13 +3493,14 @@ def scene_bridge_worker(card: str, scenes: bool, twins, rgb_cells=()):
     return seconds, rgb
 
 
-def scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
-    """Phase 47: SceneManipulation-v1 rgb at 1024 envs, the base camera and
-    the Fetch's head and hand cameras. Returns the kernel's max depth error
-    against the plain version."""
+def scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, cell=SCENE_RGB, key="scene_rgb"):
+    """Phase 47 (SceneManipulation-v1) and phase 50 (RoboCasaKitchen-v1):
+    ``cell``'s env rgb at its width, the base camera and the Fetch's head
+    and hand cameras. Returns the kernel's max depth error against the plain
+    version."""
     from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
 
-    uid, n_envs, n_steps = SCENE_RGB
+    uid, n_envs, n_steps = cell
     name = f"{uid} rgb x{n_envs}"
     kernel = tr.KERNEL
     t0 = time.perf_counter()
@@ -3461,7 +3532,7 @@ def scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths)
         times = kernel_times(kernel, tr, inputs, 128, 128)
         table, valid = tr.face_records(*inputs)
         _, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
-        paths[f"scene_rgb_{n_envs}_{cam_name}"] = dict(launches=launches // len(cams), **times)
+        paths[f"{key}_{n_envs}_{cam_name}"] = dict(launches=launches // len(cams), **times)
         print(f"{name} {cam_name}: the last frame of 16 envs re-rendered through the plain version: seg "
               f"agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; faces per band mean "
               f"{counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene {inputs[0].shape[1]}; "
@@ -3595,6 +3666,288 @@ def bridge_rgb_times(torch, dev, tr, paths, rgb, card):
               f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it); {m} envs: kernel {km_ms:.4f} ms vs "
               f"plain {pm_ms:.3f} ms; tiled render (binning + kernel) {frame_ms:.4f} ms/frame {card}")
         err = max(err, e)
+    return err
+
+
+def robocasa_oracles(torch, base, card):
+    """The teleport oracles of tests/test_robocasa.py on every env:
+    OpenDrawer's success flips as the target drawer is set past OPEN_MIN,
+    PnPCounterToSink's in_basin (and success, at rest) as the target object
+    is set into the basin."""
+    from maniskill_tpu_torch import physics as phys
+
+    scene = base.scene
+    uid = type(base).uid
+
+    def teleport(fn):
+        q = scene.data.qpos.clone()
+        fn(q)
+        scene.data = phys.forward(scene.model, scene.data.replace(qpos=q, qvel=torch.zeros_like(scene.data.qvel)))
+        return base.evaluate()
+
+    if uid == "RoboCasaOpenDrawer-v1":
+        adr, open_min = base.target_joint.q_adr, base.OPEN_MIN
+        shut = teleport(lambda q: q.__setitem__((slice(None), adr), 0.5 * open_min))["success"]
+        opened = teleport(lambda q: q.__setitem__((slice(None), adr), 1.2 * open_min))["success"]
+        check(not bool(shut.any()) and bool(opened.all()),
+              f"{uid}: success in {int(shut.sum())} envs at half OPEN_MIN, {int(opened.sum())} at 1.2 x")
+        print(f"  {uid}: success false in every env with the drawer at {0.5 * open_min:.3f} m, true in every env "
+              f"at {1.2 * open_min:.3f} m (OPEN_MIN {open_min} m) {card}")
+    else:
+        adr = int(scene.model.body_q_adr[base.target_object.body_id])
+
+        def basin(lift):
+            def put(q):
+                q[:, adr:adr + 3] = base._sink_target
+                q[:, adr + 2] += lift
+            return put
+
+        above = teleport(basin(0.3))
+        inside = teleport(basin(0.0))
+        check(not bool(above["in_basin"].any()) and bool(inside["in_basin"].all() & inside["success"].all()),
+              f"{uid}: in_basin in {int(above['in_basin'].sum())} envs above the basin, {int(inside['in_basin'].sum())} "
+              f"(success {int(inside['success'].sum())}) with the object in the basin")
+        print(f"  {uid}: in_basin false in every env with the object 0.3 m above the basin, in_basin and success "
+              f"true in every env with it set into the basin at rest {card}")
+
+
+def robocasa_state_phase(torch, dev, make, card):
+    """Phase 49: the four RoboCasa ids in state mode with the Fetch, zero
+    actions, and RoboCasaKitchen-v1's other four layouts."""
+    uid0, n, n_steps = ROBOCASA_TIMED
+    zero = torch.zeros(n, FETCH_ACTION, device=dev)
+    for uid, steps in ((uid0, n_steps),) + tuple((u, ROBOCASA_OTHER_STEPS) for u in ROBOCASA_OTHERS):
+        rec = []
+        env = state_cell(torch, dev, make, card, uid, n, steps, zero, after=finite_steps_hook(torch, rec))
+        base = env.unwrapped
+        check(base.agent.uid == "fetch", f"{uid}: robot {base.agent.uid}")
+        check(bool(torch.stack(rec).all()), f"{uid}: obs or reward not finite, or a contact overflow, in a step")
+        m = base.scene.model
+        print(f"  {uid} x{n}: obs and rewards finite and contact.overflow 0 in every env and step; nbody {m.nbody}, "
+              f"ngeom {m.ngeom}, nv {m.nv}, {len(base.scene.articulations) - 1} articulated fixtures")
+        dexterity_cpu_parity(torch, dev, make, uid, base.get_state_dict(), card, qpos_tol=ROBOCASA_CPU_QPOS_TOL)
+        if uid in ("RoboCasaOpenDrawer-v1", "RoboCasaPnPCounterToSink-v1"):
+            robocasa_oracles(torch, base, card)
+        del env, base
+    m = ROBOCASA_LAYOUT_ENVS
+    zero = torch.zeros(m, FETCH_ACTION, device=dev)
+    for idx in range(1, 5):
+        t0 = time.perf_counter()
+        env = make(uid0, num_envs=m, obs_mode="state", device=dev, layout_ids=idx)
+        env.reset(seed=0)
+        obs, reward, *_ = env.step(zero)
+        torch.cuda.synchronize()
+        base = env.unwrapped
+        data = base.scene.data
+        check(bool(torch.isfinite(obs).all() & torch.isfinite(data.qpos).all()), f"{uid0} layout {idx}: not finite")
+        check(int(data.contact.overflow.max()) == 0, f"{uid0} layout {idx}: contact overflow")
+        print(f"  {uid0} layout {idx} ({base.scene_builder.build_configs[idx]}) x{m}: make, reset and 1 step in "
+              f"{time.perf_counter() - t0:.2f} s; finite, overflow 0; nbody {base.scene.model.nbody}, ngeom "
+              f"{base.scene.model.ngeom} {card}")
+        del env, base, data
+
+
+def drive_cpu_parity(torch, dev, drag_object, state, target, card):
+    """The first DEX_CPU_ENVS envs of the drag env's ``state`` and drive
+    ``target`` on the card and in the port on the CPU, DEX_CPU_STEPS
+    zero-action steps: qpos within DRAG_CPU_QPOS_TOL."""
+    m = DEX_CPU_ENVS
+    out = []
+    for d in (dev, torch.device("cpu")):
+        factory = drag_object._DragEnvFactory(DRAG[0], "cube")
+        env = factory.make(num_envs=m, obs_mode="state", device=d)
+        zero = torch.zeros((m,) + tuple(env.single_action_space.shape), device=d)
+        env.reset(seed=0, options=dict(reset_to_env_states=_first_envs(state, m, d)))
+        factory.drive.set_drive_target(target[:m].to(d))
+        for _ in range(DEX_CPU_STEPS):
+            env.step(zero)
+        out.append(env.scene.data.qpos.cpu())
+        del env
+    gap = float((out[0] - out[1]).abs().max())
+    check(gap <= DRAG_CPU_QPOS_TOL, f"{DRAG[0]} with a drive: the card's first {m} envs part from the CPU's by "
+                                    f"{gap:.3g} (qpos, tolerance {DRAG_CPU_QPOS_TOL})")
+    print(f"  {DRAG[0]} with a drive: the card's first {m} envs and the CPU port from one state and target, "
+          f"{DEX_CPU_STEPS} zero-action steps: qpos within {gap:.3g} (tolerance {DRAG_CPU_QPOS_TOL}) {card}")
+
+
+def drive_phase(torch, dev, make, card):
+    """Phase 51: a world-anchored drive drags PushCube's cube at DRAG's
+    width, then the two teleoperation CLIs on the card with key scripts."""
+    from maniskill_tpu_torch.examples.teleoperation import drag_object, interactive_panda
+    from maniskill_tpu_torch.utils.timing import profile_calls
+
+    uid, n = DRAG
+    t0 = time.perf_counter()
+    factory = drag_object._DragEnvFactory(uid, "cube")
+    env = factory.make(num_envs=n, obs_mode="state", device=dev)
+    drive = factory.drive
+    zero = torch.zeros((n,) + tuple(env.single_action_space.shape), device=dev)
+    env.reset(seed=0)
+    env.step(zero)  # builds the lazy tables
+    env.reset(seed=0)
+    # the arm out of the drag's way: the resting gripper hangs where a cube
+    # lifted 0.1 m would meet it in some envs
+    qpos = env.agent.robot.qpos.clone()
+    qpos[:, 1] = DRAG_SHOULDER
+    env.agent.reset(qpos)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    state = env.get_state_dict()
+    target = env.obj.pose.raw_pose.clone()
+    target[:, 3:] = 0.0
+    target[:, 3] = 1.0
+    start = target.clone()
+    errs = []
+    t0 = time.perf_counter()
+    for move in DRAG_MOVES:
+        for i, dx in enumerate(move):
+            target[:, i] += dx
+        drive.set_drive_target(target)
+        for _ in range(DRAG_STEPS):
+            env.step(zero)
+        errs.append(torch.linalg.vector_norm(env.obj.pose.p - target[:, :3], dim=-1).max())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (len(DRAG_MOVES) * DRAG_STEPS)
+    errs = [float(e) for e in errs]
+    data = env.scene.data
+    check(bool(torch.isfinite(data.qpos).all()) and int(data.contact.overflow.max()) == 0,
+          f"{uid} with a drive: state not finite or a contact overflow")
+    check(max(errs) <= DRAG_TOL, f"{uid} with a drive: the cube {max(errs):.4f} m from its target after "
+                                 f"{DRAG_STEPS} control steps (tolerance {DRAG_TOL})")
+    _, prof = profile_calls(lambda: env.step(zero), 1)
+    check(prof["syncs"] == 0, f"{uid} with a drive: {prof['syncs']} stream/event syncs in a step")
+    check(prof["h2d_copies"] == 0, f"{uid} with a drive: {prof['h2d_copies']} host-to-device copies in a step")
+    moved = (target[:, :3] - start[:, :3])[0].tolist()
+    print(f"{uid} x{n} with a world-anchored drive on the cube, the arm raised (shoulder {DRAG_SHOULDER} rad): "
+          f"make {make_s:.2f} s; the target moved by "
+          f"{DRAG_MOVES[0]} then {DRAG_MOVES[1]} m ({moved} in all), {DRAG_STEPS} control steps after each: the "
+          f"cube within {errs[0]:.4f} and {errs[1]:.4f} m of the target in every env (tolerance {DRAG_TOL}); "
+          f"{step_s * 1e3:.2f} ms/step; step profile {prof['launches']:.0f} launches, {prof['syncs']:.0f} "
+          f"stream/event syncs, {prof['h2d_copies']:.0f} host-to-device copies, device kernels "
+          f"{prof['device_kernel_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (idle {prof['device_idle_share']:.3f}) "
+          f"{card}")
+    drive_cpu_parity(torch, dev, drag_object, state, target, card)
+    del env, data
+
+    # the CLIs at one env on the card, each fed a key script ending in q
+    for module, keys in ((drag_object, DRAG_KEYS), (interactive_panda, PANDA_KEYS)):
+        script = iter(keys)
+        read_key = module._read_key
+        module._read_key = lambda: next(script)
+        try:
+            t0 = time.perf_counter()
+            out, _ = _quiet(module.main, [])
+        finally:
+            module._read_key = read_key
+        cli_s = time.perf_counter() - t0
+        if module is drag_object:
+            tg, pos = out["targets"], out["positions"]
+            rise, push = pos[4, 2] - pos[0, 2], pos[-1, 0] - pos[4, 0]
+            gap = float(np.abs(pos[-1] - tg[-1]).max())
+            check(len(tg) == len(keys) - 1 and rise > 0.05 and push > 0.07 and gap < DRAG_TOL,
+                  f"drag_object CLI: {len(tg)} steps, the object rose {rise:.4f} m on r, moved {push:.4f} m on w, "
+                  f"ends {gap:.4f} m from its target")
+            print(f"  drag_object CLI ({keys!r}, one env): the object rose {rise:.4f} m on r x4 after the first, "
+                  f"moved {push:.4f} m along x on w x5, ends {gap:.4f} m from its target; {cli_s:.2f} s {card}")
+        else:
+            tcp = out["tcp"]
+            dx, dz = tcp[2, 0] - tcp[0, 0], tcp[-1, 2] - tcp[2, 2]
+            check(len(tcp) == len(keys) - 1 and dx > 0.02 and dz > 0.02 and np.isfinite(out["reward"]).all(),
+                  f"interactive_panda CLI: {len(tcp)} steps, the TCP moved {dx:.4f} m on w, {dz:.4f} m on r")
+            print(f"  interactive_panda CLI ({keys!r}, one env, pd_ee_target_delta_pos): the TCP moved {dx:.4f} m "
+                  f"along x on w x2 after the first, {dz:.4f} m up on r x3; {cli_s:.2f} s {card}")
+
+
+def slice16_worker(card: str):
+    """Phases 49 and 51 in a process of their own. Returns their seconds."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+
+    torch.set_num_threads(2)  # the CPU port's parity steps, beside the other processes
+    dev = torch.device("cuda")
+    seconds = {}
+    for phase, fn in (("49", robocasa_state_phase), ("51", drive_phase)):
+        t0 = time.perf_counter()
+        fn(torch, dev, make, card)
+        seconds[phase] = time.perf_counter() - t0
+    return seconds
+
+
+def stereo_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 52: a StereoDepthCamera on PickCube-v1 through the kernel, two
+    launches per observation (left eye, right eye); the int16 depth of the
+    last observation's first STEREO_PLAIN_ENVS envs equal to the plain
+    version's through the same stereo code. Returns the kernel's max 1/z
+    error against the plain version."""
+    from maniskill_tpu_torch.sensors.depth_camera import StereoDepthCamera, StereoDepthCameraConfig, stereo_depth
+    from maniskill_tpu_torch.utils.scene_utils import look_at
+    from maniskill_tpu_torch.utils.timing import cuda_ms
+
+    uid, n_envs, n_steps = STEREO
+    H, W = STEREO_SIZE
+    name = f"{uid} StereoDepthCamera x{n_envs} {H}x{W}"
+    kernel = tr.KERNEL
+    env = make(uid, num_envs=n_envs, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev)
+    scene = env.unwrapped.scene
+    zero = torch.zeros(n_envs, 8, device=dev)
+    pose = look_at([0.3, 0.3, 0.4], [0.0, 0.0, 0.05])
+    cam = StereoDepthCamera(StereoDepthCameraConfig("stereo", pose, W, H, np.pi / 2, 0.01, 10.0), scene)
+    env.reset(seed=0)
+    cam.get_obs(rgb=True, depth=True, segmentation=True)  # builds the mesh
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    env.reset(seed=0)
+    obs = cam.get_obs(rgb=True, depth=True, segmentation=True)
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        env.step(zero)
+        obs = cam.get_obs(rgb=True, depth=True, segmentation=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel.launches
+    check(launches == 2 * (1 + n_steps), f"{name}: kernel launches {launches} != 2 x observations {2 * (1 + n_steps)}")
+    depth, seg = obs["depth"], obs["segmentation"]
+    check(tuple(depth.shape) == (n_envs, H, W, 1) and depth.dtype == torch.int16, f"{name}: depth {depth.shape}")
+    m = STEREO_PLAIN_ENVS
+    mesh = cam._get_mesh()
+    wv = mesh.world_vertices(*geom_poses(scene.model, scene.data))
+    z_plain, err, eyes = [], 0.0, []
+    for eye, view in (("left", cam._view_matrix()), ("right", cam.right_view_matrix())):
+        inputs = tiled_inputs(mesh, wv, view, cam.proj, H, W, lights=scene.lights)
+        zk, sk, _, dk = tr.rasterize_tiles(*inputs, H, W)
+        zp, sp, _, _ = tr.rasterize_tiles_ref(*[a[:m] for a in inputs[:5]], inputs[5], H, W)
+        check(int(dk) == 0 and bool(torch.equal(sk[:m], sp)), f"{name} {eye}: seg differs from the plain version")
+        err = max(err, (zk[:m] - zp).abs().max().item())
+        z_plain.append(torch.where(sp >= 0, zp, 0.0))
+        eyes.append((eye, inputs))
+    kernel.launches = launches  # comparison launches are not main-path launches
+    plain = stereo_depth(z_plain[0], z_plain[1], cam.fx, cam.baseline, cam.disparity_levels)
+    differ = int((plain != depth[:m]).sum())
+    check(differ == 0, f"{name}: int16 depth differs from the plain stereo depth on {differ} px")
+    fg = seg > 0
+    shadow = int((fg & (depth == 0)).sum())
+    check(shadow > 0 and bool((depth[fg] > 0).float().mean() > 0.5),
+          f"{name}: {shadow} occlusion-shadow px, valid share of the foreground "
+          f"{float((depth[fg] > 0).float().mean()):.3f}")
+    obs_ms = cuda_ms(lambda: cam.get_obs(rgb=True, depth=True, segmentation=True), 5)
+    kernel.launches = launches
+    for eye, inputs in eyes:
+        times = kernel_times(kernel, tr, inputs, H, W)
+        table, valid = tr.face_records(*inputs)
+        _, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, H, W)
+        paths[f"stereo_depth_{n_envs}_{eye}"] = dict(launches=launches // 2, **times)
+        print(f"{name} {eye} eye: faces per band mean {counts.float().mean().item():.1f}, max {int(counts.max())}, "
+              f"faces in the scene {inputs[0].shape[1]}; raster kernel {times['ms']:.4f} ms/frame vs plain "
+              f"{times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}, "
+              f"{times['bound_ms'] / times['ms']:.3f} of it) {card}")
+        del table, counts
+    print(f"{name}: reset + {n_steps} steps with an observation after each: kernel launches {launches} (2 per "
+          f"observation), dropped 0; the last observation's int16 depth of {m} envs equal to the plain version's "
+          f"through the same stereo code; {shadow} of {int(fg.sum())} foreground px invalidated as occlusion "
+          f"shadows ({shadow / max(int(fg.sum()), 1):.4f}); {wall_s / n_steps * 1e3:.2f} ms per step + observation, "
+          f"the observation alone {obs_ms:.4f} ms {card}")
     return err
 
 
@@ -3950,10 +4303,11 @@ def main(device: str = "cuda"):
     # phases 16-17 (the planner CLI alone) and the rgb phases, whose kernel
     # times are taken, with the card to this process alone
     planner = planner_pool_start(card)
-    side_pool = spawn_pool(3)
+    side_pool = spawn_pool(4)
     side = side_pool.submit(side_worker, card + SIDE_SHARED)
     dex = side_pool.submit(dexterity_worker, card + DEX_SHARED)
     early = side_pool.submit(scene_bridge_worker, card + SCENE_SHARED, True, BRIDGE_EARLY)
+    slice16 = side_pool.submit(slice16_worker, card + SLICE16_SHARED)
     try:
         shared = card + PLANNER_SHARED
         ee_control_phase(torch, dev, make, shared)
@@ -3967,12 +4321,14 @@ def main(device: str = "cuda"):
         side_s = side.result()
         dex_s = dex.result()
         early_s, _ = early.result()
+        slice16_s = slice16.result()
     finally:
         side_pool.shutdown(wait=True, cancel_futures=True)
         planner[0].shutdown(wait=True, cancel_futures=True)  # its results stay with its futures
     stamp("phases 23, 24, 26 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in side_s.items())
           + " in their process), 39, 30 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in dex_s.items())
-          + " in theirs) and 45, 46 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in early_s.items()) + " in theirs)")
+          + " in theirs), 45, 46 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in early_s.items()) + " in theirs)"
+          + " and 49, 51 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice16_s.items()) + " in theirs)")
     tdmpc2_phase(torch, dev, make, card)
     stamp("phase 31")
     max_err = max(max_err, planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, planner))
@@ -3994,6 +4350,11 @@ def main(device: str = "cuda"):
     stamp("phase 43")
     max_err = max(max_err, scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 47")
+    max_err = max(max_err, scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, KITCHEN_RGB,
+                                           "robocasa_rgb"))
+    stamp("phase 50")
+    max_err = max(max_err, stereo_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 52")
     ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
     stamp("phase 28")
     max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))

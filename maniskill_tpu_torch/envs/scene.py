@@ -65,6 +65,20 @@ class ManiSkillScene:
 
         return MJCFLoader(self)
 
+    def create_drive(self, entity1, pose1, entity2, pose2, stiffness=(1e3, 1e2), damping=(1e2, 1e1),
+                     force_limit=(1e3, 1e3)):
+        """A body-body 6-dof drive between two actors or links, built before
+        ``finalize``; ``entity1=None`` anchors it to the world. A pose is
+        None (identity), a position (3,) or a pose (7,) in its body's frame."""
+        from ..building.actor_builder import _pose7
+        from ..structs.drive import Drive
+
+        b1 = 0 if entity1 is None else entity1.body_id
+        b2 = entity2.body_id
+        did = self.mb.add_drive(b1, _pose7(pose1), b2, _pose7(pose2), stiffness=stiffness, damping=damping,
+                                force_limit=force_limit)
+        return Drive(self, did, b1, b2)
+
     def register_actor(self, actor: Actor):
         if actor.name in self.actors:
             raise ValueError(f"duplicate actor name {actor.name!r}")

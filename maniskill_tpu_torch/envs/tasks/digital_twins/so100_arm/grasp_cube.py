@@ -25,11 +25,11 @@ from .....building.ground import build_ground
 from .....sensors.camera import CameraConfig
 from .....structs.pose import Pose
 from .....structs.types import SimConfig
-from .....utils.geometry.rotation_conversions import matrix_to_quaternion
 from .....utils.registration import register_env
 from .....utils.scene_utils import look_at
 from ....utils.observations import parse_obs_mode_to_struct
 from ....utils.randomization.batched_rng import BatchedRNG
+from ....utils.randomization.camera import batched_look_at
 from ..base_env import BaseDigitalTwinEnv
 
 
@@ -50,20 +50,6 @@ class SO100GraspCubeDomainRandomizationConfig:
     cube_friction_std: float = 0.05
     cube_friction_bounds: Sequence[float] = (0.1, 0.5)
     randomize_cube_color: bool = True
-
-
-def batched_look_at(eyes: torch.Tensor, targets: torch.Tensor) -> Pose:
-    """(B, 3) eyes and targets -> the cameras' poses (ROS camera frame: +x
-    toward the target, +z up)."""
-    fwd = targets - eyes
-    fwd = fwd / (torch.linalg.vector_norm(fwd, dim=-1, keepdim=True) + 1e-9)
-    up = torch.zeros_like(fwd)
-    up[..., 2] = 1.0  # filled on the device: no host copy in the step
-    left = torch.linalg.cross(up, fwd)
-    left = left / (torch.linalg.vector_norm(left, dim=-1, keepdim=True) + 1e-9)
-    up2 = torch.linalg.cross(fwd, left)
-    rot = torch.stack([fwd, left, up2], -1)  # columns
-    return Pose(torch.cat([eyes, matrix_to_quaternion(rot)], -1))
 
 
 @register_env("SO100GraspCube-v1", max_episode_steps=64)

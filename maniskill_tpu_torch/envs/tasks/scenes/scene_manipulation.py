@@ -14,6 +14,7 @@ import torch
 from ....scene_builder.ai2thor import variants as _thor  # noqa: F401 (registers the AI2THOR builders)
 from ....scene_builder.registration import REGISTERED_SCENE_BUILDERS
 from ....scene_builder.replicacad import ReplicaCADSceneBuilder  # noqa: F401 (registers)
+from ....scene_builder.robocasa import RoboCasaSceneBuilder  # noqa: F401 (registers)
 from ....sensors.camera import CameraConfig
 from ....utils.registration import register_env
 from ....utils.scene_utils import look_at
@@ -66,6 +67,7 @@ class SceneManipulationEnv(BaseEnv):
 
 
 # one id per registered scene builder, creatable by id alone (the
-# reference's registration loop; the port has no RoboCasa builder)
+# reference's registration loop): ReplicaCAD, the four AI2THOR builders and
+# RoboCasa
 for _k in list(REGISTERED_SCENE_BUILDERS):
     register_env(f"{_k}_SceneManipulation-v1", max_episode_steps=200, scene_builder_cls=_k)(SceneManipulationEnv)

@@ -348,8 +348,6 @@ class ModelBuilder:
                 np.asarray(g.hull_dirs, np.float32) if g.hull_dirs is not None
                 else np.tile(np.array([[0, 0, 1.0]], np.float32), (HULL_MAX_DIRS, 1))
             )
-        if self.drives:
-            raise NotImplementedError("body-body 6-dof drives are not ported yet")
 
         def stack(rows, width):
             return np.stack(rows) if rows else np.zeros((0, width))
@@ -401,6 +399,7 @@ class ModelBuilder:
             geom_friction=np.asarray([g.friction for g in geoms], np.float32),
             geom_restitution=np.asarray([g.restitution for g in geoms], np.float32),
             gravity=self.gravity,
+            **self._drive_tables(),
             geom_hull=geom_hull,
             hull_verts=np.stack(hv_list) if hv_list else None,
             hull_dirs=np.stack(hd_list) if hd_list else None,
@@ -414,6 +413,16 @@ class ModelBuilder:
             geom_names=tuple(g.name for g in geoms),
         )
         return model_from_numpy(fields, device)
+
+    def _drive_tables(self) -> dict:
+        """The Model's drive6_* fields (none without a drive)."""
+        if not self.drives:
+            return {}
+        cols = list(zip(*self.drives))
+        names = ("drive6_body1", "drive6_pose1", "drive6_body2", "drive6_pose2",
+                 "drive6_stiffness", "drive6_damping", "drive6_force_limit")
+        return {n: np.asarray(c, np.int32) if n.startswith("drive6_body") else np.stack(c)
+                for n, c in zip(names, cols)}
 
     def _candidate_pairs(self, body_parent, body_type, ancestor) -> List[Tuple[int, int]]:
         """Static broadphase: all geom pairs that could ever collide."""

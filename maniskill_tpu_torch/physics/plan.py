@@ -103,6 +103,12 @@ class ModelPlan:
         # dof-less marker bodies whose poses live in Data.mocap_pose
         self.mocap = None if model.mocap_bodies is None else t(model.mocap_bodies)
 
+        # body-body 6-dof drives (physics/drives.py)
+        self.drive_b1 = self.drive_b2 = None
+        if model.drive6_body1 is not None and len(model.drive6_body1):
+            self.drive_b1 = t(model.drive6_body1)
+            self.drive_b2 = t(model.drive6_body2)
+
         # ---- CRB masks: DL[d,e]=1 iff dof d lies on the chain from world to
         # body(e) and e >= d (dof order = depth order); DLs with e > d ----
         anc = np.asarray(model.ancestor_mask)

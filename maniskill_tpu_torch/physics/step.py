@@ -9,6 +9,7 @@ import torch
 
 from ..utils.geometry import rotation_conversions as rc
 from .collision import collide
+from .drives import drive_wrenches
 from .dynamics import smooth_dynamics
 from .kinematics import forward_kinematics, forward_kinematics_raw
 from .plan import model_plan
@@ -30,9 +31,9 @@ def step(model: Model, data: Data) -> Data:
     inside a substep reads them; the env runs ``forward_kinematics`` after
     the substeps).
     """
-    if model.drive6_body1 is not None and len(model.drive6_body1):
-        raise NotImplementedError("body-body 6-dof drives are not ported yet")
     kin = forward_kinematics_raw(model, data.qpos, data.qvel)
+    if model.drive6_body1 is not None and len(model.drive6_body1):
+        data = data.replace(xfrc_applied=data.xfrc_applied + drive_wrenches(model, data, kin))
     Minv, qvel_pred, qacc = smooth_dynamics(model, data, kin)
     contact = collide(model, data, kin)
     qvel_new, contact = solve(model, data, Minv, qvel_pred, contact, kin)

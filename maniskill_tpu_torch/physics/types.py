@@ -119,7 +119,8 @@ class Model(_Replace):
     geom_names: Tuple[str, ...] = ()
     mocap_bodies: Optional[np.ndarray] = None  # (M,) i32 dof-less marker bodies
 
-    # body-body 6-dof drives (physics/drives.py is not ported yet)
+    # body-body 6-dof drives (physics/drives.py): bodies, frames in them,
+    # gains (ND, 2) [linear, angular]
     drive6_body1: Optional[np.ndarray] = None
     drive6_body2: Optional[np.ndarray] = None
     drive6_pose1: Optional[torch.Tensor] = None
@@ -212,6 +213,7 @@ _PLAN_FIELDS = {
     "nv", "nbody", "body_parent", "body_jnt_type", "body_q_adr", "body_dof_adr",
     "body_type", "geom_body", "geom_type", "pair_geom1", "pair_geom2", "dof_body",
     "dof_is_rot", "dof_limited", "ancestor_mask", "mocap_bodies", "geom_hull",
+    "drive6_body1", "drive6_body2",
 }
 _FLOAT_FIELDS = {
     "timestep", "contact_slop", "baumgarte", "max_correction_vel",

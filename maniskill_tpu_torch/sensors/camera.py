@@ -20,6 +20,7 @@ from ..structs.link import Link
 from ..structs.pose import Pose
 from ..utils.geometry import rotation_conversions as rc
 from ..utils.scene_utils import ROS_TO_CV, ROS_TO_GL
+from .base_sensor import BaseSensor
 
 
 @dataclasses.dataclass
@@ -65,11 +66,11 @@ def update_camera_configs_from_dict(configs: Dict[str, CameraConfig], overrides:
                 setattr(configs[name], k, v)
 
 
-class Camera:
+class Camera(BaseSensor):
     def __init__(self, config: CameraConfig, scene):
         if config.shader_pack.startswith("rt"):
             raise NotImplementedError("ray-traced shader packs are not ported yet")
-        self.config = config
+        super().__init__(config)
         self.scene = scene
         H, W = config.height, config.width
         if config.intrinsic is not None:
@@ -151,6 +152,11 @@ class Camera:
         hidden_actors: Sequence = (),
     ) -> Dict[str, torch.Tensor]:
         _, buf = self.capture(hidden_actors, want_normal=normal, want_albedo=albedo)
+        return self.obs_from_buffer(buf, rgb, depth, segmentation, position, normal, albedo)
+
+    def obs_from_buffer(self, buf, rgb=True, depth=False, segmentation=False, position=False, normal=False,
+                        albedo=False) -> Dict[str, torch.Tensor]:
+        """The texture contract applied to a rendered buffer (``capture``'s)."""
         out = {}
         if rgb:
             out["rgb"] = (torch.clamp(buf["color"], 0, 1) * 255).to(torch.uint8)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..physics.types import FREE, HINGE, SLIDE
@@ -54,6 +55,37 @@ class ArticulationJoint:
     def qvel(self) -> torch.Tensor:
         return self.scene.data.qvel[:, self.dof_adr : self.dof_adr + 1]
 
+    @property
+    def limits(self) -> torch.Tensor:
+        """(2,) limits of this dof, or (B, 2) once set per env (gathered on
+        the dof axis, as ``Articulation.qlimits``)."""
+        return self.scene.model.dof_limit[..., self.dof_adr, :]
+
+    @property
+    def drive_target(self) -> torch.Tensor:
+        return self.scene.data.drive_target[:, self.dof_adr : self.dof_adr + 1]
+
+    def _write(self, field: str, target):
+        """Write a shared or per-env (B,) value into this dof's column of
+        ``Data.<field>``, masked by the partial-reset mask."""
+        scene = self.scene
+        if not isinstance(target, torch.Tensor):
+            target = np.asarray(target, np.float32)
+        col = scene.to_batch(target.reshape(-1, 1), 1)
+        d = scene.data
+        cols = slice(self.dof_adr, self.dof_adr + 1)
+        scene.data = d.replace(**{field: scene.write_cols(getattr(d, field), cols, col)})
+
+    def set_drive_target(self, target):
+        self._write("drive_target", target)
+
+    def set_drive_velocity_target(self, target):
+        self._write("drive_vel_target", target)
+
+    def set_drive_properties(self, stiffness, damping, force_limit=np.inf, mode="force"):
+        """Update this dof's PD gains in the model."""
+        self.scene.set_drive_properties([self.dof_adr], stiffness, damping, force_limit)
+
 
 class Articulation:
     def __init__(self, scene: "ManiSkillScene", name: str):
@@ -79,6 +111,13 @@ class Articulation:
     @property
     def dof(self) -> int:
         return len(self.active_joints)
+
+    @property
+    def max_dof(self) -> int:
+        return self.dof
+
+    def get_link(self, name: str) -> Link:
+        return self.links_map[name]
 
     # -- joint state -----------------------------------------------------
     @property
@@ -146,6 +185,31 @@ class Articulation:
             return torch.zeros(self.scene.num_envs, 3, device=self.scene.device)
         va = self.root_dof_adr
         return self.scene.data.qvel[:, va + 3 : va + 6]
+
+    # -- drives ----------------------------------------------------------
+    def _write_targets(self, field: str, targets, joints):
+        """Write ``targets`` into the columns of ``joints`` (the active joints
+        by default) of ``Data.<field>``, masked by the partial-reset mask."""
+        scene = self.scene
+        cols = self._vadr if joints is None else torch.tensor(
+            [j.dof_adr for j in joints], dtype=torch.int64, device=scene.device)
+        d = scene.data
+        scene.data = d.replace(**{field: scene.write_cols(getattr(d, field), cols, scene.to_batch(targets, len(cols)))})
+
+    def set_joint_drive_targets(self, targets, joints: Optional[List[ArticulationJoint]] = None):
+        """Write PD position targets."""
+        self._write_targets("drive_target", targets, joints)
+
+    def set_joint_drive_velocity_targets(self, targets, joints: Optional[List[ArticulationJoint]] = None):
+        self._write_targets("drive_vel_target", targets, joints)
+
+    @property
+    def drive_targets(self) -> torch.Tensor:
+        return self.scene.data.drive_target[:, self._vadr]
+
+    @property
+    def drive_velocity_targets(self) -> torch.Tensor:
+        return self.scene.data.drive_vel_target[:, self._vadr]
 
     # -- state dict (13 + 2*dof layout) -----------------------------------
     def get_state(self) -> torch.Tensor:

@@ -2,8 +2,8 @@
 maniskill_tpu/utils/geometry/rotation_conversions.py).
 
 Quaternions use the **wxyz** convention (scalar first). Every function
-broadcasts over leading batch dimensions. Only the functions the ported
-modules call are here.
+broadcasts over leading batch dimensions. A random draw comes from a
+``torch.Generator`` or is passed in as a tensor.
 """
 from __future__ import annotations
 
@@ -34,6 +34,10 @@ def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def quaternion_conjugate(q: torch.Tensor) -> torch.Tensor:
     """Conjugate of wxyz quaternion(s), the inverse of a unit quaternion."""
     return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
+# the reference's name; for a unit quaternion the inverse is the conjugate
+quaternion_invert = quaternion_conjugate
 
 
 def quaternion_apply(q: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
@@ -137,3 +141,73 @@ def matrix_to_euler_angles(m: torch.Tensor, convention: str = "XYZ") -> torch.Te
     a = torch.atan2(-m[..., 1, 2], m[..., 2, 2])
     c = torch.atan2(-m[..., 0, 1], m[..., 0, 0])
     return torch.stack([a, b, c], -1)
+
+
+def _axis_quat(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    half = 0.5 * angle
+    c, s, z = torch.cos(half), torch.sin(half), torch.zeros_like(angle)
+    if axis == "X":
+        return torch.stack([c, s, z, z], -1)
+    if axis == "Y":
+        return torch.stack([c, z, s, z], -1)
+    return torch.stack([c, z, z, s], -1)
+
+
+def euler_angles_to_quaternion(euler: torch.Tensor, convention: str = "XYZ") -> torch.Tensor:
+    """Intrinsic Euler angles (..., 3) -> wxyz quaternion: for "XYZ",
+    R = Rx(e0) Ry(e1) Rz(e2)."""
+    q = _axis_quat(convention[0], euler[..., 0])
+    for i, axis in enumerate(convention[1:], start=1):
+        q = quaternion_multiply(q, _axis_quat(axis, euler[..., i]))
+    return q
+
+
+def euler2quat(ai, aj, ak, axes: str = "sxyz") -> torch.Tensor:
+    """transforms3d's ``euler2quat`` for static "sxyz" (R = Rz(ak) Ry(aj)
+    Rx(ai)) and rotating "rxyz" frames; float32 on the angles' device."""
+    ang = [a if isinstance(a, torch.Tensor) else torch.tensor(a, dtype=torch.float32) for a in (ai, aj, ak)]
+    ai, aj, ak = torch.broadcast_tensors(*(a.to(torch.float32) for a in ang))
+    if axes == "sxyz":
+        return euler_angles_to_quaternion(torch.stack([ak, aj, ai], -1), "ZYX")
+    if axes == "rxyz":
+        return euler_angles_to_quaternion(torch.stack([ai, aj, ak], -1), "XYZ")
+    raise NotImplementedError(f"euler axes {axes}")
+
+
+def random_quaternions(n: int, generator: torch.Generator = None, dtype=torch.float32, device=None,
+                       normal: torch.Tensor = None) -> torch.Tensor:
+    """(n, 4) uniform random unit wxyz quaternions with a non-negative real
+    part, from (n, 4) standard normal draws: ``normal`` when given, else
+    drawn from ``generator``."""
+    if normal is None:
+        normal = torch.randn(n, 4, generator=generator, dtype=dtype, device=device)
+    q = normal / torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    return standardize_quaternion(q)
+
+
+def quaternion_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical linear interpolation between unit quaternions (the shorter
+    arc); ``t`` broadcasts against (..., 1)."""
+    d = torch.sum(q0 * q1, -1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    theta = torch.arccos(torch.clamp(torch.abs(d), -1.0, 1.0))
+    sin_t = torch.sin(theta)
+    small = sin_t < 1e-6
+    safe = torch.where(small, torch.ones_like(sin_t), sin_t)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(small, t * torch.ones_like(sin_t), torch.sin(t * theta) / safe)
+    out = w0 * q0 + w1 * q1
+    return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """Zhou et al.'s continuous 6D rotation (the first two rows) -> matrix."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / torch.linalg.vector_norm(a1, dim=-1, keepdim=True)
+    b2 = a2 - torch.sum(b1 * a2, -1, keepdim=True) * b1
+    b2 = b2 / torch.linalg.vector_norm(b2, dim=-1, keepdim=True)
+    return torch.stack([b1, b2, cross(b1, b2)], -2)
+
+
+def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:
+    return m[..., :2, :].reshape(m.shape[:-2] + (6,))

@@ -403,3 +403,50 @@ def test_link_geom_ids_and_is_root():
         ids = link.geom_ids
         assert len(ids) == 2 and (gb[ids] == link.body_id).all()
     assert art.links_map["base"].is_root and not art.links_map["slider"].is_root
+
+
+def patch_jax_robocasa(mp):
+    """Patch the JAX package's two RoboCasa task faults through ``mp`` (a
+    pytest ``MonkeyPatch``), editing no JAX file: the platform class gains
+    an ``articulated`` alias of ``articulated_fixtures`` (OpenDrawer reads
+    it), and PnPCounterToSink's reset keeps its sink tables as numpy (the
+    reference stores device arrays on the env inside the traced reset)."""
+    from maniskill_tpu.envs.tasks.mobile_manipulation import robocasa_kitchen as jrc
+
+    mp.setattr(jrc.RoboCasaKitchenEnv, "articulated", property(lambda self: self.articulated_fixtures),
+               raising=False)
+
+    def init_episode(self, env_idx, options):
+        jrc.RoboCasaKitchenEnv._initialize_episode(self, env_idx, options)
+        sb = self.scene_builder
+        if "sink_basin" in sb.regions:
+            center, yaw, half, _ = sb.regions["sink_basin"]
+        else:
+            center, yaw, _ = sb.counter_slots[0]
+            half = [0.16, 0.24]
+        self._sink_center = np.asarray(center, np.float32)
+        self._sink_yaw = float(yaw)
+        self._sink_half = np.asarray(half, np.float32)
+
+    mp.setattr(jrc.RoboCasaPnPCounterToSinkEnv, "_initialize_episode", init_episode)
+
+
+def teleport(jb, tb, jforward, qpos):
+    """Both envs' qpos set to ``qpos`` (numpy) with velocities zeroed and
+    their kinematics and contacts refreshed (``jforward`` is the JAX
+    package's jitted ``forward``); returns each side's (info, dense reward,
+    normalized dense reward) as numpy."""
+    import jax.numpy as jnp
+    from maniskill_tpu_torch import physics as tphys
+
+    jd = jb.scene.data
+    jb.scene.data = jforward(jd.replace(qpos=jnp.asarray(qpos), qvel=jnp.zeros_like(jd.qvel)))
+    td = tb.scene.data
+    tb.scene.data = tphys.forward(tb.scene.model, td.replace(qpos=torch.as_tensor(qpos),
+                                                             qvel=torch.zeros_like(td.qvel)))
+    out = []
+    for b, conv in ((jb, np.asarray), (tb, lambda x: x.numpy())):
+        info = b.evaluate()
+        out.append(({k: conv(v) for k, v in info.items()}, conv(b.compute_dense_reward(None, None, info)),
+                    conv(b.compute_normalized_dense_reward(None, None, info))))
+    return out

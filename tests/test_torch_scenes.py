@@ -1,9 +1,9 @@
 """The port's scene builders and SceneManipulation-v1 against the JAX
 package's, on the CPU.
 
-- The scene-builder registry equals the JAX package's without RoboCasa
-  (blocked: its JAX tests fail), and the port registers one
-  ``{uid}_SceneManipulation-v1`` id per builder.
+- The scene-builder registry equals the JAX package's (RoboCasa's builder
+  is held in tests/test_torch_robocasa_kitchen.py), and the port registers
+  one ``{uid}_SceneManipulation-v1`` id per builder.
 - Each procedural builder, built into a bare scene in both packages, makes
   the same geoms exactly (body, kind, size, pose, colour, collision flag),
   the same actors (name, body type, initial pose) and the same dynamic
@@ -59,12 +59,14 @@ BUILDS = [("ReplicaCAD", None), ("iTHOR", None), ("ArchitecTHOR", None), ("RoboT
 
 
 def test_registry_matches_reference_without_robocasa():
-    assert sorted(TBUILDERS) == sorted(set(JBUILDERS) - {"RoboCasa"})
+    # the name predates the RoboCasa port: the registries are now equal,
+    # RoboCasa's builder and its SceneManipulation id included
+    assert sorted(TBUILDERS) == sorted(JBUILDERS) and "RoboCasa" in TBUILDERS
     for uid, spec in TBUILDERS.items():
         assert spec.scene_builder_cls.__name__ == JBUILDERS[uid].scene_builder_cls.__name__
     scene_ids = {k for k in TENVS if k.endswith("SceneManipulation-v1")}
     assert scene_ids == {"SceneManipulation-v1"} | {f"{k}_SceneManipulation-v1" for k in TBUILDERS}
-    assert scene_ids == {k for k in JENVS if k.endswith("SceneManipulation-v1")} - {"RoboCasa_SceneManipulation-v1"}
+    assert scene_ids == {k for k in JENVS if k.endswith("SceneManipulation-v1")}
 
 
 def _bare_env(scene):
