@@ -29,15 +29,15 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
  10. PPO, PickCube-v1 state, 4096 envs, README's recipe (rollout 4, 8
      epochs, 32 minibatches), 3 iterations: loss finite, no non-finite
      params, obs or rewards; env-steps/s and rollout/update ms per
-     iteration; one more rollout under the profiler: 0 stream/event syncs
-     and 0 host-to-device copies per rollout step.
+     iteration; 2 steps of one more rollout under the profiler: 0
+     stream/event syncs and 0 host-to-device copies per rollout step.
  11. The repo's JAX-trained ppo_pickcube_state.pkl carried into the port and
      evaluated greedily at 4096 envs over 50 steps: success_once >= 0.85.
  12. PPO, PushCube-v1 rgb, 512 envs, README's recipe (rollout 8), 2
      iterations: the same finiteness; the raster kernel launches twice per
      rollout step (the step's frame and the masked reset's); the last frame
      of 16 envs re-rendered through the plain version (seg agreement >=
-     0.999, rgb equal).
+     0.999, rgb equal); 2 profiled rollout steps, as in phase 10.
  13. ppo_pushcube_rgb.pkl evaluated greedily at 512 envs over 50 steps:
      success_once >= 0.80.
  14. End-effector and joint-velocity control, PickCube-v1 state, 4096 envs:
@@ -383,6 +383,27 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
      16 envs equal to the plain version's through the same stereo code, the
      occlusion shadows (foreground pixels invalidated) counted; each eye's
      kernel ms per frame against its bound.
+ 53. The ray-traced packs on PickCube-v1 (render/pathtracer.py, plain
+     torch): rt-fast at 4 envs and 32x32 held to the CPU port from one
+     state and the same draws (seg/valid agreeing on >= 0.999 of the
+     pixels, the rest within 1e-4 where the 3x3 neighbourhood agrees), a
+     profiled render with 0 syncs and 0 host-to-device copies; then one
+     frame each of rt-fast @16, rt-med @4 and rt @1 in the 512x512 human
+     camera and rt-fast @256 in the 128x128 sensor, timed with CUDA events,
+     with its ray-triangle tests, bound, share and peak memory.
+ 54. The render modes, PickCube-v1 at 1024 envs, both cameras at 128x128:
+     "rgb_array", "sensors" and "all" make 1, 1 and 2 kernel launches, "all"
+     is the other two side by side, 16 envs of each camera equal to the
+     plain version; in a process of its own beside phases 32-38, a
+     BrowserViewer on localhost (a 512x512 JPEG part read from /stream,
+     an event and the status round-tripped) and interactive_panda
+     --browser at one env driven by posted events (the TCP along +x).
+ 55. The benchmarking CLIs: gpu_sim PickCube-v1 at 4096 envs, 20 steps,
+     its CSV row printed (beside phases 32-38); bench_render at its
+     defaults (its JSON line printed, on an earlier line than the last).
+ 56. The seven demos at one env, beside phases 32-38:
+     demo_reset_distribution under rt-fast, demo_manual_control fed a key
+     script, the rest at their defaults.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -400,10 +421,12 @@ run beside phases 14, 18, 20 and 21;
 then TD-MPC2
 (phase 31, whose planner is device-bound), the rest of 16-17 (the planner
 CLI alone on the card) and the rgb phases 19, 22, 25, 27, 40, 41, 43, 47,
-50, 52 with 28 and 29, whose kernel times are taken, with the card to this
-process alone; in phases 32-34 the two per-episode replays, phases 35-38,
-phases 42 and 44, and two of phase 46's twins with phase 48 run in
-processes of their own (phase 48's kernel times are taken after them). A
+50, 52, 53 and 54's render modes, whose kernel times are taken, with the
+card to this process alone; in phases 32-34 the two per-episode replays,
+phases 35-38, phases 42 and 44, two of phase 46's twins with phase 48,
+phases 28 and 29, and phases 54-56's host-bound parts run in processes of
+their own (the kernel times of phases 29, 48 and 54-56 are taken after
+them). A
 rate or a device time taken beside other processes says so
 where it is printed: the card time-slices between the processes' contexts,
 so device times read there run long.
@@ -559,6 +582,9 @@ PPO_CABINET_PROFILE_STEPS = 2
 # iterations run here, total steps of the recipe for the learning-rate decay)
 PPO_STATE = ("PickCube-v1", 4096, 4, 8, 32, 2, 100_000_000)
 PPO_RGB = ("PushCube-v1", 512, 8, 4, 8, 2, 12_000_000)
+# the profiled rollouts of phases 10 and 12: 2 of their 4 and 8 steps (the
+# profiler takes ~5 s to read a step of ~25,000 launches)
+PPO_STATE_PROFILE_STEPS = PPO_RGB_PROFILE_STEPS = 2
 # phase 29: visual PPO on PushCube rgbd at PPO_RGB's recipe; 2 of the 8
 # rollout steps profiled
 PPO_RGBD = ("PushCube-v1", 512, 8, 4, 8, 2, 12_000_000)
@@ -756,6 +782,32 @@ SLICE16_SHARED = (" (in a process of its own beside phase 16's planner processes
 STEREO = ("PickCube-v1", 2048, 5)
 STEREO_SIZE = (128, 128)
 STEREO_PLAIN_ENVS = 16
+# phase 53: the ray-traced packs on PickCube-v1, plain torch on the card:
+# (pack, envs, camera, height, width) of each timed frame, and the rt-fast
+# frame (envs, height, width) held to the CPU port from one state and draws
+RT_FRAMES = (("rt-fast", 16, "human", 512, 512), ("rt-med", 4, "human", 512, 512), ("rt", 1, "human", 512, 512),
+             ("rt-fast", 256, "sensor", 128, 128))
+RT_PLAIN = (4, 32, 32)
+RT_CPU_TOL = 1e-4
+# Möller-Trumbore per ray-triangle test with FMAs, what depends on the ray
+# alone or the face alone hoisted: d x e2 (6), e1.h (3), 1/a (1), s.h, d.q,
+# e2.q with their 1/a (12), the four range tests and the select (5)
+RT_INSTR_PER_TEST = 27
+# phase 54: render modes through the kernel (envs, height, width of both cameras)
+RENDER_MODES = (1024, 128, 128)
+# phase 55: the benchmark CLIs: gpu_sim (env, envs, steps); bench_render at
+# its defaults (Cartpole rgb @1024, 60 steps)
+GPU_SIM = ("PickCube-v1", 4096, 20)
+BENCH_RENDER_STEPS = 60
+# phases 54-56's host-bound parts (the viewer, gpu_sim, the demos) run in a
+# process of their own beside phases 32-38
+SLICE17_SHARED = (" (in a process of its own beside phases 32-34, their processes and those of phases 42 and 44, "
+                  "of phases 46 and 48 and of phases 28 and 29)")
+# phases 28 and 29 (PPO on OpenCabinetDrawer state and PushCube rgbd,
+# host-bound) run in a process of their own beside phases 32-38; phase 29's
+# kernel times are taken after them, with the card to the main process alone
+PPO_LATE_SHARED = (" (in a process of its own beside phases 32-34, their processes and those of phases 42 and 44, "
+                   "of phases 46 and 48 and of phases 54-56)")
 SEG_AGREE_MIN = 0.999  # re-render seg agreement bound (the kernel is bit-exact: expect 1.0)
 CUBE_WEIGHT = 0.064 * 9.81  # PickCube's 4 cm cube of density 1000, in N
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and FP32 instructions/s
@@ -2582,9 +2634,11 @@ def kernel_times(kernel, tr, inputs, height: int, width: int):
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+def ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses):
     """Phase 29: visual PPO on PushCube rgbd (a depth tower beside the rgb
-    one). Returns the kernel's max depth error against the plain version."""
+    one). Returns the kernel's launches in the timed iterations, the last
+    frame's inputs (on the host, for the kernel's times taken alone) and its
+    max depth error against the plain version."""
     kernel = tr.KERNEL
     env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgbd", PPO_RGBD, kernel,
                                             profile_steps=PPO_RGBD_PROFILE_STEPS)
@@ -2604,14 +2658,30 @@ def ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     check(not bool(torch.equal(feats[:, depth_feats], blind[:, depth_feats])), f"{name}: the depth tower ignores depth")
     inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, obs["rgb"], name,
                                         depth=depth)
-    path = dict(launches=launches, **kernel_times(kernel, tr, inputs, 128, 128))
-    paths[f"pushcube_ppo_rgbd_{n_envs}"] = path
     print(f"{name}: the depth obs int16 mm, nonzero below the horizon in every env (max {int(depth.max())} mm); "
           f"depth features finite and moved by the depth; the last frame of 16 envs re-rendered through the plain "
           f"version: int16 depth equal, seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal {card}")
-    print(f"raster kernel (pushcube rgbd, {n_envs}x128x128): {path['ms']:.4f} ms/frame vs plain "
-          f"{path['plain_ms']:.3f} ms, bound {path['bound_ms']:.4f} ms ({path['bound_by']}) {card}")
-    return err
+    return launches, [x.cpu() if isinstance(x, torch.Tensor) else x for x in inputs], err
+
+
+def ppo_late_worker(card: str):
+    """Phases 28 and 29 (PPO, host-bound) in a process of their own beside
+    phases 32-38. Returns their seconds and phase 29's kernel launches, last
+    frame's inputs and max error."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
+    t1 = time.perf_counter()
+    rgbd = ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses)
+    return {"28": t1 - t0, "29": time.perf_counter() - t1}, rgbd
 
 
 def _rel_err(a, b):
@@ -3951,6 +4021,369 @@ def stereo_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     return err
 
 
+def camera_inputs(base, cam, hidden, tiled_inputs, geom_poses):
+    """The tiled rasterizer's inputs for ``cam``'s frame of the current state."""
+    mesh = cam._get_mesh(tuple(hidden))
+    gpos, gquat = geom_poses(base.scene.model, base.scene.data)
+    return tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj,
+                        cam.config.height, cam.config.width, lights=base.scene.lights)
+
+
+def rt_tests(cam, n_envs: int) -> int:
+    """Ray-triangle tests of one path-traced frame: envs x pixels x rays per
+    pixel x faces, rays per pixel = spp x (1 primary + a shadow ray per
+    directional light + 1 indirect where bounces > 0)."""
+    from maniskill_tpu_torch.render.pathtracer import RT_PACKS
+
+    cfg = RT_PACKS[cam.config.shader_pack]
+    lights = sum(1 for l in cam.scene.lights if l["kind"] == "directional") or 1
+    rays = cfg["spp"] * (1 + lights + (1 if cfg["bounces"] > 0 else 0))
+    return n_envs * cam.config.height * cam.config.width * rays * cam._get_mesh(()).num_faces
+
+
+def rt_bound_ms(cam, n_envs: int, buf):
+    """(bound ms, "bytes" or "operations") of a path-traced frame: its
+    ray-triangle tests at RT_INSTR_PER_TEST FP32 instructions each, or the
+    world vertices and face table read once and the buffers written once."""
+    mesh = cam._get_mesh(())
+    nbytes = n_envs * mesh.verts.shape[-2] * 12 + mesh.num_faces * (24 + 12 + 4) + sum(
+        v.numel() * v.element_size() for v in buf.values())
+    t_ops = rt_tests(cam, n_envs) * RT_INSTR_PER_TEST / PEAK_FP32_INSTR_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rt_phase(torch, dev, make, card):
+    """Phase 53: the ray-traced packs on PickCube-v1's cameras through
+    ``Camera.capture`` (plain torch on the card). First RT_PLAIN's rt-fast
+    frame held to the CPU port from the same state and draws, and a profiled
+    render of it (0 syncs, 0 host-to-device copies); then each of RT_FRAMES
+    timed once with CUDA events, with its ray-triangle tests, bound, share and
+    peak memory."""
+    from maniskill_tpu_torch.render import pathtracer as tpt
+    from maniskill_tpu_torch.utils.timing import profile_calls
+
+    n, H, W = RT_PLAIN
+    cams = dict(human_render_camera_configs=dict(width=W, height=H, shader_pack="rt-fast"))
+    envs = [make("PickCube-v1", num_envs=n, obs_mode="state", device=d, **cams).unwrapped
+            for d in (dev, torch.device("cpu"))]
+    gpu, cpu = envs
+    gpu.reset(seed=0)
+    cpu.reset(options=dict(reset_to_env_states=tree_to(gpu.get_state_dict(), "cpu")))
+    seed = gpu.scene.render_seed()
+    jitter = torch.stack([tpt.render_draws(seed, s, n, H * W, False)[0] for s in range(2)])
+    bufs = []
+    for env in envs:
+        _, buf = env._human_render_cameras["render_camera"].capture(draws=dict(jitter=jitter.to(env.device)))
+        bufs.append({k: v.cpu() for k, v in buf.items()})
+    k, c = bufs
+    agree = (k["seg"] == c["seg"]) & (k["valid"] == c["valid"])
+    near = torch.nn.functional.max_pool2d((~agree).float()[:, None], 3, 1, 1)[:, 0] == 0
+    err = max(float((k[key][near] - c[key][near]).abs().max()) for key in ("color", "depth", "normal", "albedo"))
+    check(float(agree.float().mean()) >= SEG_AGREE_MIN and err <= RT_CPU_TOL,
+          f"rt-fast {n}x{H}x{W}: seg/valid agree on {float(agree.float().mean()):.5f}, max error {err:.2e} "
+          f"against the CPU port")
+    cam = gpu._human_render_cameras["render_camera"]
+    _, prof = profile_calls(lambda: cam.capture(), 1)
+    check(prof["syncs"] == 0 and prof["h2d_copies"] == 0,
+          f"rt-fast render: {prof['syncs']} syncs, {prof['h2d_copies']} host-to-device copies")
+    print(f"rt-fast {n}x{H}x{W}: the card's frame and the CPU port's from one state and the same draws: "
+          f"seg/valid agree on {float(agree.float().mean()):.6f}, color/depth/normal/albedo within {err:.2e} where "
+          f"the 3x3 neighbourhood agrees; a profiled render: {prof['launches']:.0f} launches, {prof['syncs']:.0f} "
+          f"syncs, {prof['h2d_copies']:.0f} host-to-device copies, device kernels {prof['device_kernel_ms']:.3f} of "
+          f"{prof['wall_ms']:.3f} ms (idle {prof['device_idle_share']:.3f}) {card}")
+    for name, ms in list(prof["top_kernels_ms"].items())[:5]:
+        print(f"  {ms:9.3f} ms  {name}")
+    del envs, gpu, cpu, bufs, cam
+
+    for pack, n, which, H, W in RT_FRAMES:
+        if which == "human":
+            cfg = dict(human_render_camera_configs=dict(width=W, height=H, shader_pack=pack))
+        else:
+            cfg = dict(sensor_configs=dict(width=W, height=H, shader_pack=pack))
+        env = make("PickCube-v1", num_envs=n, obs_mode="state", device=dev, **cfg)
+        base = env.unwrapped
+        env.reset(seed=0)
+        cam = base._human_render_cameras["render_camera"] if which == "human" else base._sensors["base_camera"]
+        hidden = () if which == "human" else tuple(base._hidden_objects)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, buf = cam.capture(hidden)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        valid = float(buf["valid"].float().mean())
+        check(bool(torch.isfinite(buf["color"]).all()) and 0.2 < valid <= 1.0,
+              f"rt {pack} {n}x{H}x{W}: color not finite or valid share {valid:.3f}")
+        tests = rt_tests(cam, n)
+        bound, by = rt_bound_ms(cam, n, buf)
+        print(f"rt {pack} {which} camera {n}x{H}x{W}: {ms:.1f} ms/frame (one frame, CUDA events), {tests:.4e} "
+              f"ray-triangle tests ({cam._get_mesh(()).num_faces} faces), bound {bound:.2f} ms ({by}), "
+              f"{bound / ms:.5f} of it; peak memory {peak / 1e9:.3f} GB ({(peak - held) / 1e9:.3f} GB above the "
+              f"env's {held / 1e9:.3f} GB), foreground {valid:.3f} {card}")
+        del env, base, cam, buf
+
+
+def tree_to(x, device):
+    return {k: tree_to(v, device) for k, v in x.items()} if isinstance(x, dict) else x.to(device)
+
+
+def render_modes_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 54's first half: PickCube-v1 at RENDER_MODES's envs, the human
+    and the sensor camera at 128x128, ``render()`` in "rgb_array",
+    "sensors" and "all": 1, 1 and 2 kernel launches, "all" the two side by
+    side, the first 16 envs of each camera re-rendered through the plain
+    version. Returns the kernel's max 1/z error."""
+    from maniskill_tpu_torch.utils.timing import cuda_ms
+
+    n, H, W = RENDER_MODES
+    kernel = tr.KERNEL
+    env = make("PickCube-v1", num_envs=n, obs_mode="state", render_mode="rgb_array", device=dev,
+               human_render_camera_configs=dict(width=W, height=H), sensor_configs=dict(width=W, height=H))
+    base = env.unwrapped
+    zero = torch.zeros(n, 8, device=dev)
+    env.reset(seed=0)
+    for _ in range(2):
+        env.step(zero)
+    cams = dict(rgb_array=(base._human_render_cameras["render_camera"], ()),
+                sensors=(base._sensors["base_camera"], tuple(base._hidden_objects)))
+    frames = {}
+    for mode, expect in (("rgb_array", 1), ("sensors", 1), ("all", 2)):
+        base.render_mode = mode
+        kernel.launches = 0
+        frames[mode] = env.render()
+        torch.cuda.synchronize()
+        launches = kernel.launches
+        check(launches == expect and tuple(frames[mode].shape) == (n, H, W * expect, 3),
+              f"render {mode}: {launches} launches, frame {tuple(frames[mode].shape)}")
+        ms = cuda_ms(env.render, 5)
+        kernel.launches = launches
+        print(f"pickcube render {mode} @{n}: {launches} kernel launches, frame {tuple(frames[mode].shape)}, "
+              f"{ms:.3f} ms per render {card}")
+    check(bool(torch.equal(frames["all"], torch.cat([frames["rgb_array"], frames["sensors"]], 2))),
+          "render all: not the rgb_array and sensors frames side by side")
+    err = 0.0
+    for mode, (cam, hidden) in cams.items():
+        inputs = camera_inputs(base, cam, hidden, tiled_inputs, geom_poses)
+        before = kernel.launches
+        zk, _, _, _ = tr.rasterize_tiles(*inputs, H, W)
+        zp, _, rp, _ = tr.rasterize_tiles_ref(*[a[:16] for a in inputs[:5]], inputs[5], H, W)
+        kernel.launches = before  # comparison launches are not main-path launches
+        plain = (torch.clamp(rp, 0, 1) * 255).to(torch.uint8)
+        check(bool(torch.equal(plain, frames[mode][:16])), f"render {mode}: differs from the plain re-render")
+        err = max(err, float((zk[:16] - zp).abs().max()))
+        times = kernel_times(kernel, tr, inputs, H, W)
+        paths[f"pickcube_render_{mode}_{n}"] = dict(launches=1, **times)
+        paths[f"pickcube_render_all_{n}_{mode}"] = dict(launches=1, **times)  # "all" draws both cameras
+        print(f"raster kernel (pickcube render {mode}, {n}x{H}x{W}): {times['ms']:.4f} ms/frame vs plain "
+              f"{times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}, "
+              f"{times['bound_ms'] / times['ms']:.3f} of it); 16 envs equal to the plain re-render {card}")
+    return err
+
+
+def bench_render_phase(torch, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 55's second half: ``bench_render`` at its defaults (its JSON
+    line printed by the CLI), its launches on the kernel's paths."""
+    from maniskill_tpu_torch.examples.benchmarking import bench_render
+
+    kernel = tr.KERNEL
+    kernel.launches = 0
+    out = bench_render.main([])
+    launches = kernel.launches
+    base = out["env"].unwrapped
+    cam = base._sensors["base_camera_0"]
+    check(launches == 3 + BENCH_RENDER_STEPS and out["value"] > 0,
+          f"bench_render: {launches} launches (two resets, a warm-up step and {BENCH_RENDER_STEPS} steps), "
+          f"{out['value']} fps")
+    inputs = camera_inputs(base, cam, (), tiled_inputs, geom_poses)
+    paths["bench_render_cartpole_1024"] = dict(launches=launches, **kernel_times(kernel, tr, inputs, 128, 128))
+    print(f"bench_render: {out['value']} env*frames/s, vs_baseline {out['vs_baseline']} (RTX 4090: 32,138), "
+          f"{launches} kernel launches {card}")
+
+
+def read_jpeg_part(port):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stream", timeout=60) as r:
+        check(r.readline() == b"--f\r\n" and r.readline() == b"Content-Type: image/jpeg\r\n", "stream part header")
+        size = int(r.readline().split(b":")[1])
+        r.readline()
+        return r.read(size)
+
+
+def jpeg_size(jpeg: bytes):
+    """(height, width) from a baseline JPEG's SOF0 segment."""
+    pos = jpeg.index(b"\xff\xc0")
+    return int.from_bytes(jpeg[pos + 5:pos + 7], "big"), int.from_bytes(jpeg[pos + 7:pos + 9], "big")
+
+
+def viewer_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses):
+    """Phase 54's second half: a BrowserViewer on localhost serving
+    PickCube-v1's human camera (JPEG parts read from /stream, an event and
+    the status round-tripped), then ``interactive_panda --browser`` at one
+    env driven by posted 'w' events. Returns its kernel launches and the
+    last frame's inputs (on the host)."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    from maniskill_tpu_torch.examples.teleoperation import interactive_panda
+    from maniskill_tpu_torch.viewer import BrowserViewer
+
+    def post(port, ev):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/api/event", data=_json.dumps(ev).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status
+
+    env = make("PickCube-v1", num_envs=1, obs_mode="state", render_mode="rgb_array", device=dev)
+    env.reset(seed=0)
+    frame = env.render()[0]
+    viewer = BrowserViewer(port=0, host="127.0.0.1")
+    try:
+        t0 = time.perf_counter()
+        viewer.push_frame(frame)
+        push_ms = (time.perf_counter() - t0) * 1e3
+        jpeg = read_jpeg_part(viewer.port)
+        check(jpeg[:2] == b"\xff\xd8" and jpeg[-2:] == b"\xff\xd9" and jpeg_size(jpeg) == tuple(frame.shape[:2]),
+              f"viewer: a {len(jpeg)}-byte part of size {jpeg_size(jpeg)}")
+        check(post(viewer.port, {"type": "key", "key": "w"}) == 204
+              and viewer.poll_events() == [{"type": "key", "key": "w"}], "viewer: the event did not come back")
+        viewer.set_status({"step": 1})
+        with urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}/api/status", timeout=60) as r:
+            check(_json.loads(r.read()) == {"step": 1}, "viewer: status")
+    finally:
+        viewer.close()
+    print(f"viewer: a 512x512 frame encoded and published in {push_ms:.1f} ms ({len(jpeg)} bytes), read back from "
+          f"/stream; an event and the status round-tripped {card}")
+
+    def drive(v):
+        def run():
+            read_jpeg_part(v.port)
+            for _ in range(3):
+                post(v.port, {"type": "key", "key": "w"})
+                time.sleep(0.5)
+            post(v.port, {"type": "key", "key": "q"})
+
+        threading.Thread(target=run, daemon=True).start()
+
+    tr.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    out = interactive_panda.main(["--env-id", "PickCube-v1", "--browser", "0", "--max-steps", "3"], on_start=drive)
+    wall = time.perf_counter() - t0
+    launches = tr.KERNEL.launches
+    steps = len(out["tcp"])
+    moved = float(out["tcp"][-1][0] - out["tcp0"][0]) if steps else 0.0
+    check(1 <= steps <= 3 and moved > 0.005 and launches == 1 + steps,
+          f"interactive_panda --browser: {steps} steps, TCP +x {moved:.4f} m, {launches} kernel launches")
+    print(f"interactive_panda --browser: {steps} steps from posted events, the TCP {moved * 1e3:.1f} mm along +x, "
+          f"{launches} kernel launches, {wall:.2f} s {card}")
+    base = out["env"].unwrapped
+    inputs = camera_inputs(base, base._human_render_cameras["render_camera"], (), tiled_inputs, geom_poses)
+    return launches, [x.cpu() if isinstance(x, torch.Tensor) else x for x in inputs]
+
+
+def gpu_sim_phase(card, tmp):
+    """Phase 55's first half: ``gpu_sim`` PickCube-v1 at GPU_SIM's envs and
+    steps, its CSV row printed."""
+    import csv as _csv
+
+    from maniskill_tpu_torch.examples.benchmarking import gpu_sim
+
+    uid, n, steps = GPU_SIM
+    path = f"{tmp}/gpu_sim.csv"
+    out = gpu_sim.main(["-e", uid, "-n", str(n), "--num-steps", str(steps), "--save-results", path])
+    with open(path) as f:
+        (row,) = list(_csv.DictReader(f))
+    check(float(row["env.step/fps"]) > 0 and float(row["gpu_mem_mb"]) > 0, f"gpu_sim: {row}")
+    print(f"gpu_sim CSV row: {json.dumps(row)} {card}")
+    return out
+
+
+def demos_phase(torch, card, tr, tiled_inputs, geom_poses, tmp):
+    """Phase 56: the seven demo scripts at one env on the card
+    (demo_reset_distribution under rt-fast, demo_manual_control fed a key
+    script). Returns their kernel launches and the last sensor frame's
+    inputs (on the host)."""
+    from maniskill_tpu_torch.examples import (demo_manual_control, demo_random_action, demo_reset_distribution,
+                                              demo_robot, demo_vis_pcd, demo_vis_segmentation, demo_vis_textures)
+
+    tr.KERNEL.launches = 0
+    seconds = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    out = run("random_action", lambda: demo_random_action.main(["-e", "PushCube-v1", "-n", "1", "--steps", "10"]))
+    check(np.isfinite(out["reward"]).all(), "demo_random_action: reward not finite")
+    out = run("reset_distribution", lambda: demo_reset_distribution.main(
+        ["-e", "PickCube-v1", "-n", "2", "--shader", "rt-fast", "--record-dir", f"{tmp}/resets"]))
+    frames = np.load(out["path"])["frames"]
+    check(frames.shape == (2, 512, 512, 3) and frames.std() > 5 and not np.array_equal(frames[0], frames[1]),
+          f"demo_reset_distribution rt-fast: frames {frames.shape}, std {frames.std():.1f}")
+    out = run("robot", lambda: demo_robot.main(["-r", "panda", "--keyframes", "--steps", "5",
+                                                 "--save-frames", f"{tmp}/kf"]))
+    check(out["dof"] == 9 and np.abs(out["settled"]["rest"][:7] - [0, np.pi / 8, 0, -5 * np.pi / 8, 0,
+                                                                  3 * np.pi / 4, np.pi / 4]).max() < 0.05,
+          f"demo_robot: {out['settled']}")
+    keys = iter("wwgq")
+    demo_manual_control._read_key = lambda: next(keys)
+    out = run("manual_control", lambda: demo_manual_control.main(["-e", "PickCube-v1", "-c", "pd_ee_delta_pos",
+                                                                  "--save-frames", f"{tmp}/manual"]))
+    check(out["action"].shape == (3, 4), f"demo_manual_control: actions {out['action'].shape}")
+    out = run("vis_pcd", lambda: demo_vis_pcd.main(["-e", "PushCube-v1", "-o", f"{tmp}/pcd.ply"]))
+    check(len(out["xyz"]) > 1000 and np.isfinite(out["xyz"]).all(), f"demo_vis_pcd: {len(out['xyz'])} points")
+    out = run("vis_segmentation", lambda: demo_vis_segmentation.main(["-o", f"{tmp}/seg.png"]))
+    ids = set(np.unique(out["seg"]).tolist()) - {0}
+    check(ids and ids <= set(out["legend"]), f"demo_vis_segmentation: ids {ids} outside the legend")
+    out = run("vis_textures", lambda: demo_vis_textures.main(["-o", "rgb+depth+normal+segmentation",
+                                                              "--out", f"{tmp}/tex.png"]))
+    check(len(out["names"]) == 4 and out["tiled"].shape == (256, 256, 3), f"demo_vis_textures: {out['names']}")
+    launches = tr.KERNEL.launches
+    check(launches > 0, "the demos made no kernel launch")
+    print("demos at one env: " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+          + f"; {launches} kernel launches (the rasterized frames) {card}")
+    base = out["env"].unwrapped
+    inputs = camera_inputs(base, base._sensors["base_camera"], tuple(base._hidden_objects), tiled_inputs, geom_poses)
+    return launches, [x.cpu() if isinstance(x, torch.Tensor) else x for x in inputs]
+
+
+def slice17_worker(card: str):
+    """Phases 54 (the viewer, interactive_panda --browser), 55 (gpu_sim) and
+    56 (the demos) in a process of their own. Returns their seconds and, per
+    kernel path, (launches, the last frame's inputs on the host, H, W)."""
+    import torch
+
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.physics.kinematics import geom_poses
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+    from maniskill_tpu_torch.render.rasterizer import tiled_inputs
+
+    dev = torch.device("cuda")
+    seconds, kernel_paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launches, inputs = viewer_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses)
+        kernel_paths["interactive_panda_browser_1"] = (launches, inputs, 512, 512)
+        seconds["54"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gpu_sim_phase(card, tmp)
+        seconds["55"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches, inputs = demos_phase(torch, card, tr, tiled_inputs, geom_poses, tmp)
+        kernel_paths["demos_1"] = (launches, inputs, 128, 128)
+        seconds["56"] = time.perf_counter() - t0
+    return seconds, kernel_paths
+
+
 def data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, stamp):
     """Phases 32-38. The two per-episode replays (one env, ~0.3 s a step) and
     the last trainers (phases 35-38) run in processes of their own: RFCL and
@@ -4254,7 +4687,8 @@ def main(device: str = "cuda"):
     stamp("phase 9")
 
     # ---- phases 10-11: PPO state, PickCube-v1 --------------------------------
-    env, trainer, _, _ = ppo_phase(torch, dev, make, card, "state", PPO_STATE, None)
+    env, trainer, _, _ = ppo_phase(torch, dev, make, card, "state", PPO_STATE, None,
+                                   profile_steps=PPO_STATE_PROFILE_STEPS)
     stamp("phase 10")
     evaluate_checkpoint(torch, env, trainer, STATE_CKPT, STATE_SUCCESS_MIN, card)
     del env, trainer
@@ -4262,7 +4696,8 @@ def main(device: str = "cuda"):
     stamp("phase 11")
 
     # ---- phases 12-13: PPO rgb, PushCube-v1 ---------------------------------
-    env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgb", PPO_RGB, kernel)
+    env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgb", PPO_RGB, kernel,
+                                            profile_steps=PPO_RGB_PROFILE_STEPS)
     base = env.unwrapped
     inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, obs["rgb"],
                                         "pushcube ppo rgb")
@@ -4355,26 +4790,46 @@ def main(device: str = "cuda"):
     stamp("phase 50")
     max_err = max(max_err, stereo_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
     stamp("phase 52")
-    ppo_phase(torch, dev, make, card, "state", PPO_CABINET, None, profile_steps=PPO_CABINET_PROFILE_STEPS)
-    stamp("phase 28")
-    max_err = max(max_err, ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
-    stamp("phase 29")
+    rt_phase(torch, dev, make, card)
+    stamp("phase 53")
+    max_err = max(max_err, render_modes_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 54's render modes")
+    bench_render_phase(torch, card, tr, tiled_inputs, geom_poses, paths)
+    stamp("phase 55's bench_render")
 
     # ---- phases 32-38: record, replay, learn from the files -------------------
     # beside them, phases 42 and 44 (slice 14's state paths and planner) and
     # phase 46's last two twins with phase 48 (host-bound bridge control
     # steps; the kernel's times taken here after), each in a process of its own
-    slice_pool = spawn_pool(2)
+    slice_pool = spawn_pool(4)
     try:
         slice14 = slice_pool.submit(slice14_worker, card + SLICE14_SHARED)
+        slice17 = slice_pool.submit(slice17_worker, card + SLICE17_SHARED)
+        ppo_late = slice_pool.submit(ppo_late_worker, card + PPO_LATE_SHARED)
         late = slice_pool.submit(scene_bridge_worker, card + BRIDGE_SHARED, False, BRIDGE_LATE, BRIDGE_RGB_CELLS)
         max_err = max(max_err, data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths,
                                                        stamp))
         slice_s = slice14.result()
         stamp("phases 42 and 44 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice_s.items()) + " in their process)")
         late_s, late_rgb = late.result()
+        slice17_s, slice17_paths = slice17.result()
+        ppo_late_s, (rgbd_launches, rgbd_inputs, err) = ppo_late.result()
+        max_err = max(max_err, err)
     finally:
         slice_pool.shutdown(wait=True, cancel_futures=True)
+    stamp("phases 28 and 29 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in ppo_late_s.items()) + " in their process)")
+    rgbd = dict(launches=rgbd_launches, **kernel_times(tr.KERNEL, tr, [
+        x.to(dev) if isinstance(x, torch.Tensor) else x for x in rgbd_inputs], 128, 128))
+    paths[f"pushcube_ppo_rgbd_{PPO_RGBD[1]}"] = rgbd
+    print(f"raster kernel (pushcube rgbd, {PPO_RGBD[1]}x128x128, phase 29's last frame): {rgbd['ms']:.4f} ms/frame "
+          f"vs plain {rgbd['plain_ms']:.3f} ms, bound {rgbd['bound_ms']:.4f} ms ({rgbd['bound_by']}) {card}")
+    stamp("phases 54's viewer, 55's gpu_sim and 56 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice17_s.items())
+          + " in their process)")
+    for name, (launches, inputs, H, W) in slice17_paths.items():
+        times = kernel_times(tr.KERNEL, tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in inputs], H, W)
+        paths[name] = dict(launches=launches, **times)
+        print(f"raster kernel ({name}, the last frame at {H}x{W}): {times['ms']:.4f} ms/frame vs plain "
+              f"{times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}) {card}")
     stamp("phases 46 and 48 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in late_s.items()) + " in their process)")
     max_err = max(max_err, bridge_rgb_times(torch, dev, tr, paths, late_rgb, card))
     stamp("phase 48's kernel times")

@@ -227,6 +227,11 @@ class MultiAgent:
             a._setup_controllers()
 
     @property
+    def robot(self):
+        """The first agent's articulation."""
+        return self.agents[0].robot
+
+    @property
     def controller(self):
         """A view that resets, reads and writes every agent's controller, so
         env code treats a MultiAgent as one agent."""

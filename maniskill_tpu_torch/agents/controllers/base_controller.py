@@ -54,6 +54,20 @@ class BaseController:
     def action_space(self):
         return self._action_space
 
+    @property
+    def single_action_space(self):
+        return self._action_space
+
+    @property
+    def qpos(self) -> torch.Tensor:
+        """(B, n) positions of the controlled joints."""
+        return self.scene.data.qpos[:, self.q_adrs]
+
+    @property
+    def qvel(self) -> torch.Tensor:
+        """(B, n) velocities of the controlled joints."""
+        return self.scene.data.qvel[:, self.dof_adrs]
+
     def _initialize_action_space(self):
         raise NotImplementedError
 
@@ -146,6 +160,10 @@ class CombinedController(DictController):
         for uid, c in self.controllers.items():
             lo, hi = self.action_mapping[uid]
             c.set_action(action[..., lo:hi])
+
+    def to_action_dict(self, action: torch.Tensor) -> Dict:
+        """The flat action split into the sub-controllers' slices."""
+        return {uid: action[..., lo:hi] for uid, (lo, hi) in self.action_mapping.items()}
 
     def from_action_dict(self, action_dict: Dict) -> torch.Tensor:
         return torch.cat([action_dict[uid] for uid in self.controllers], -1)

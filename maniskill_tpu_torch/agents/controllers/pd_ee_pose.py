@@ -1,10 +1,11 @@
 """PD end-effector position and pose controllers (counterpart of
 maniskill_tpu/agents/controllers/pd_ee_pose.py).
 
-An action is an end-effector delta; damped-least-squares IK turns it into
-joint PD targets (the reference's absolute-target variant has no user here). Frames follow the reference:
-translation deltas in the robot-root frame, rotation deltas about the
-end-effector origin with root-aligned axes. With ``use_target`` the delta is
+An action is an end-effector delta (or, with ``use_delta=False``, an
+absolute target in the robot-root frame); damped-least-squares IK turns it
+into joint PD targets. Frames follow the reference: translation deltas in
+the robot-root frame, rotation deltas about the end-effector origin with
+root-aligned axes. With ``use_target`` the delta is
 taken from the pose that FK of the persisted joint targets gives. Zero
 deltas do not hold that pose exactly: the IK's nullspace bias toward the
 joints' mid-range leaks into the task space through the damping (by
@@ -42,10 +43,18 @@ class PDEEPosController(PDJointPosController):
     _action_dim = 3
 
     def _action_bounds(self):
-        if not self.config.use_delta:
-            raise NotImplementedError("absolute end-effector targets (use_delta=False) are not ported")
         n = self._action_dim
         return np.full(n, self.config.pos_lower), np.full(n, self.config.pos_upper)
+
+    @property
+    def ee_pose(self):
+        """The end link's world pose."""
+        return self.kinematics.end_link.pose
+
+    @property
+    def ee_pose_at_base(self):
+        """The end link's pose in the robot-root frame."""
+        return self.articulation.root_pose.inv() * self.ee_pose
 
     @property
     def kinematics(self) -> Kinematics:
@@ -65,8 +74,10 @@ class PDEEPosController(PDJointPosController):
 
     def _target_ee_pose(self, action, cur_p, cur_q) -> torch.Tensor:
         """Action (B, A) -> world-frame target end-effector pose (B, 7)."""
-        root_q = self.articulation.root_pose.q
-        return torch.cat([cur_p + rc.quaternion_apply(root_q, action[..., :3]), cur_q], -1)
+        root = self.articulation.root_pose
+        if not self.config.use_delta:  # an absolute position in the root frame
+            return torch.cat([root.p + rc.quaternion_apply(root.q, action[..., :3]), cur_q], -1)
+        return torch.cat([cur_p + rc.quaternion_apply(root.q, action[..., :3]), cur_q], -1)
 
     def set_action(self, action: torch.Tensor):
         action = action.to(torch.float32)
@@ -94,14 +105,17 @@ class PDEEPoseController(PDEEPosController):
     _action_dim = 6
 
     def _action_bounds(self):
-        super()._action_bounds()  # rejects use_delta=False
         c = self.config
         lo = np.concatenate([np.full(3, c.pos_lower), np.full(3, c.rot_lower)])
         hi = np.concatenate([np.full(3, c.pos_upper), np.full(3, c.rot_upper)])
         return lo, hi
 
     def _target_ee_pose(self, action, cur_p, cur_q) -> torch.Tensor:
-        root_q = self.articulation.root_pose.q
+        root = self.articulation.root_pose
+        root_q = root.q
+        if not self.config.use_delta:  # an absolute pose in the root frame
+            q = rc.quaternion_multiply(root_q, rc.axis_angle_to_quaternion(action[..., 3:]))
+            return torch.cat([root.p + rc.quaternion_apply(root_q, action[..., :3]), q], -1)
         p = cur_p + rc.quaternion_apply(root_q, action[..., :3])
         # the rotation delta about the end-effector origin, root-aligned
         dq_root = rc.axis_angle_to_quaternion(action[..., 3:])

@@ -1,12 +1,11 @@
 """YCB object library (counterpart of maniskill_tpu/building/actors/ycb.py).
 
-Each model id maps to a procedural stand-in mesh with the rough scale, mass
-and topology class of the YCB object, which is what the JAX package builds
-when the YCB download is absent from ``ASSET_DIR/assets/mani_skill2_ycb``.
-Loading the real meshes (``collision.ply``, ``textured.obj``) is not ported:
-where those files exist the loaders raise ``NotImplementedError`` naming
-them, so the port never builds other objects than the JAX package would.
-The mesh is cooked to convex hull proxies (building/cooking.py).
+Each model id maps to the real YCB meshes where the download is present in
+``ASSET_DIR/assets/mani_skill2_ycb`` (``textured.obj`` with its texture baked
+per face; ``collision.ply``, which the mesh reader does not take, so that
+branch raises as the JAX package's does), else to a procedural stand-in
+mesh with the rough scale, mass and topology class of the YCB object. The
+mesh is cooked to convex hull proxies (building/cooking.py).
 
 All generators return (verts (V,3) f32, faces (F,3) i32) triangle soups in
 metres; callers place objects by the hull's z-extent.
@@ -184,17 +183,15 @@ def _model_dir(model_id: str):
     return ASSET_DIR / "assets" / "mani_skill2_ycb" / "models" / model_id
 
 
-def _refuse_real(path) -> None:
-    if path.exists():
-        raise NotImplementedError(
-            f"{path} exists: loading the real YCB assets is not ported yet (the JAX "
-            "package would build this model from that file, not from its stand-in)"
-        )
-
-
 def load_model_mesh(model_id: str) -> Mesh:
-    """The procedural stand-in mesh of ``model_id``."""
-    _refuse_real(_model_dir(model_id) / "collision.ply")
+    """The real YCB collision mesh if downloaded, else the procedural
+    stand-in. The real one is a ``.ply``, which ``load_mesh`` does not read,
+    so that branch raises ``ValueError`` as the reference's does."""
+    real = _model_dir(model_id) / "collision.ply"
+    if real.exists():
+        from ...utils.geometry.mesh_io import load_mesh
+
+        return load_mesh(str(real))
     gen = PROCEDURAL_MODELS.get(model_id)
     if gen is None:
         raise KeyError(f"unknown YCB model id {model_id!r}; known: {all_model_ids()}")
@@ -209,8 +206,24 @@ def cooked_hulls(model_id: str, max_parts: int = 8):
     return decompose_mesh(v, f, max_parts=max_parts)
 
 
-def load_model_visual(model_id: str):
-    """Visual mesh of a model: (verts, faces, face_colors=None), the stand-in
-    with flat colours."""
-    _refuse_real(_model_dir(model_id) / "textured.obj")
+def load_model_visual(model_id: str, max_faces: int = 800):
+    """Visual mesh of a model: (verts, faces, face_colors or None). With the
+    real dataset, ``textured.obj`` with its texture baked per face at each
+    face's centroid UV, decimated past ``max_faces`` with each kept face
+    taking the colour of the original face nearest its centroid; else the
+    stand-in with flat colours."""
+    real = _model_dir(model_id) / "textured.obj"
+    if real.exists():
+        from ...render.textures import bake_obj_face_colors
+        from ...utils.geometry.mesh_io import decimate
+
+        v, f, fc = bake_obj_face_colors(str(real))
+        if len(f) > max_faces:
+            dv, df = decimate(v, f, max_faces)
+            cen_d = dv[df].mean(axis=1)
+            cen_o = v[f].mean(axis=1)
+            d2 = ((cen_d[:, None, :] - cen_o[None, :, :]) ** 2).sum(-1)
+            fc = fc[np.argmin(d2, axis=1)]
+            v, f = dv, df
+        return v, f, fc
     return (*load_model_mesh(model_id), None)

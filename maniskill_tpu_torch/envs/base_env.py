@@ -90,7 +90,9 @@ class BaseEnv:
         self._main_rng: Optional[np.random.RandomState] = None
 
         self._reconfigure({})
-        self.single_action_space = self.agent.single_action_space
+        # a robot-free env has an empty action space
+        self.single_action_space = (self.agent.single_action_space if self.agent is not None
+                                    else gym_utils.Box(-1.0, 1.0, (0,)))
         self.action_space = gym_utils.batch_space(self.single_action_space, num_envs)
 
         # first reset to derive the observation space
@@ -116,7 +118,12 @@ class BaseEnv:
 
     @property
     def control_mode(self):
-        return self.agent.control_mode
+        return self.agent.control_mode if self.agent is not None else None
+
+    @property
+    def obs_mode_struct(self):
+        """Which modalities the obs mode asks for (``parse_obs_mode_to_struct``)."""
+        return parse_obs_mode_to_struct(self.obs_mode)
 
     @property
     def elapsed_steps(self):
@@ -143,6 +150,7 @@ class BaseEnv:
         )
         self.scene.sim_steps_per_control = self.sim_config.sim_steps_per_control
         self.scene.default_restitution = self.sim_config.default_materials_config.restitution
+        self.agent = None
         self._load_agent(options)
         self._load_scene(options)
         self._load_lighting(options)
@@ -153,7 +161,8 @@ class BaseEnv:
             contact_margin=sc.contact_offset,
             bounce_threshold=sc.bounce_threshold,
         )
-        self.agent._setup_controllers()
+        if self.agent is not None:
+            self.agent._setup_controllers()
         self._setup_sensors()
         self._after_reconfigure(options)
         # build the render meshes now, at construction time
@@ -183,10 +192,11 @@ class BaseEnv:
 
     def _load_agent(self, options: dict, initial_agent_poses=None):
         """One agent, or with a list of robot uids a ``MultiAgent`` whose
-        agent i is named ``uid-i`` and stands at ``initial_agent_poses[i]``."""
+        agent i is named ``uid-i`` and stands at ``initial_agent_poses[i]``;
+        none where ``robot_uids`` is None (a robot-free env)."""
         uids = self.robot_uids
         if uids is None:
-            raise NotImplementedError("robot-free envs are not ported yet")
+            return
         if not isinstance(uids, (list, tuple)):
             uids, initial_agent_poses = [uids], [initial_agent_poses]
         agents = []
@@ -224,7 +234,7 @@ class BaseEnv:
 
         configs = parse_camera_configs(self._default_sensor_configs)
         # cameras the robots carry (a wrist camera)
-        for agent in getattr(self.agent, "agents", [self.agent]):
+        for agent in getattr(self.agent, "agents", [self.agent] if self.agent is not None else []):
             configs.update(parse_camera_configs(getattr(agent, "_sensor_configs", [])))
         update_camera_configs_from_dict(configs, self._sensor_config_overrides)
         self._sensor_configs = configs
@@ -319,7 +329,8 @@ class BaseEnv:
         else:
             self._initialize_episode(torch.arange(self.num_envs, device=self.device), {})
         scene.data = phys.forward(scene.model, scene.data)
-        self.agent.controller.reset()
+        if self.agent is not None:
+            self.agent.controller.reset()
         scene._reset_mask = None
 
         info = self.get_info()
@@ -368,11 +379,13 @@ class BaseEnv:
         scene = self.scene
         scene._reset_mask = None
         self._before_control_step()
-        self.agent.set_action(action)
+        if self.agent is not None:
+            self.agent.set_action(action)
         model = scene.model
         d = scene.data
         for i in range(self.sim_config.sim_steps_per_control):
-            d = self.agent.before_simulation_step(d, i)
+            if self.agent is not None:
+                d = self.agent.before_simulation_step(d, i)
             d = phys.step(model, d)
         scene.bind(phys.forward_kinematics(model, d))
         self._after_control_step()
@@ -411,7 +424,7 @@ class BaseEnv:
         return dict(agent=self._get_obs_agent(), extra=self._get_obs_extra(info))
 
     def _get_obs_agent(self):
-        return self.agent.get_proprioception()
+        return self.agent.get_proprioception() if self.agent is not None else {}
 
     def _get_obs_extra(self, info: dict):
         return {}
@@ -480,7 +493,7 @@ class BaseEnv:
     # ==================================================================
     def get_state_dict(self) -> dict:
         state = self.scene.get_sim_state()
-        ctrl = self.agent.controller.get_state()
+        ctrl = self.agent.controller.get_state() if self.agent is not None else None
         if ctrl:
             state["controller"] = ctrl
         return state
@@ -491,18 +504,67 @@ class BaseEnv:
             self.agent.controller.set_state(state["controller"])
         self.scene.data = phys.forward(self.scene.model, self.scene.data)
 
+    def get_state(self) -> torch.Tensor:
+        """Flat (B, D) state vector with fixed ordering (the controller's
+        state left out)."""
+        return common.flatten_state_dict({k: v for k, v in self.get_state_dict().items() if k != "controller"})
+
     # ==================================================================
     # render
     # ==================================================================
     def render(self):
-        """Frames of the human-render cameras ("rgb_array") or of the sensors
-        ("sensors"), concatenated along the width."""
+        """The frame of ``render_mode``: "rgb_array" the human-render cameras,
+        "sensors" the sensors, "all" both concatenated along the width,
+        "human" the human-render frame, also shown in a matplotlib window
+        where matplotlib is installed and its backend is not Agg."""
+        if self.render_mode is None:
+            raise RuntimeError("render_mode was not set")
         if self.render_mode == "rgb_array":
-            cams, hidden = self._human_render_cameras.values(), ()
-        elif self.render_mode == "sensors":
-            cams, hidden = self._sensors.values(), self._hidden_objects
+            return self.render_rgb_array()
+        if self.render_mode == "sensors":
+            return self.render_sensors()
+        if self.render_mode == "all":
+            return torch.cat([self.render_rgb_array(), self.render_sensors()], 2)
+        if self.render_mode == "human":
+            frame = self.render_rgb_array()
+            if frame is not None:
+                self._show(frame)
+            return frame
+        raise NotImplementedError(self.render_mode)
+
+    def _show(self, frame: torch.Tensor):
+        """Env 0's frame in a matplotlib window (the reference opens its
+        viewer here); nothing where matplotlib is missing or draws to Agg."""
+        try:
+            import matplotlib
+        except ImportError:
+            return
+        if matplotlib.get_backend().lower() == "agg":
+            return
+        import matplotlib.pyplot as plt
+
+        img = frame[0].cpu().numpy()
+        if not hasattr(self, "_viewer_fig"):
+            plt.ion()
+            self._viewer_fig, self._viewer_ax = plt.subplots()
+            self._viewer_im = self._viewer_ax.imshow(img)
+            self._viewer_ax.axis("off")
         else:
-            raise NotImplementedError(f"render_mode {self.render_mode!r}")
+            self._viewer_im.set_data(img)
+        self._viewer_fig.canvas.draw_idle()
+        plt.pause(0.001)
+
+    def render_rgb_array(self):
+        """The human-render cameras' rgb, concatenated along the width (marker
+        objects shown: only sensor captures hide them)."""
+        return self._render_cameras(self._human_render_cameras.values(), ())
+
+    def render_sensors(self):
+        """The sensors' rgb, concatenated along the width."""
+        return self._render_cameras(self._sensors.values(), self._hidden_objects)
+
+    @staticmethod
+    def _render_cameras(cams, hidden):
         imgs = [cam.get_obs(rgb=True, hidden_actors=hidden)["rgb"] for cam in cams]
         if not imgs:
             return None
@@ -510,3 +572,11 @@ class BaseEnv:
 
     def close(self):
         pass
+
+    def print_sim_details(self):
+        model = self.scene.model
+        print(
+            f"num_envs={self.num_envs} nbody={model.nbody} nq={model.nq} "
+            f"nv={model.nv} ngeom={model.ngeom} npair={model.npair} "
+            f"sim_freq={self.sim_freq} control_freq={self.control_freq}"
+        )

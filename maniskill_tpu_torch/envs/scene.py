@@ -109,6 +109,14 @@ class ManiSkillScene:
             color=np.asarray(color, np.float32),
         )
 
+    def add_point_light(self, position, color=(1, 1, 1), **kw):
+        """Recorded only: neither renderer reads point lights."""
+        self.add_light(
+            "point",
+            position=np.asarray(position, np.float32),
+            color=np.asarray(color, np.float32),
+        )
+
     def finalize(self):
         """Compile builders to the flat Model and wire view indices."""
         self.model = self.mb.finalize(self.device)
@@ -147,6 +155,14 @@ class ManiSkillScene:
     def bind(self, data):
         self.data = data
         return self
+
+    def render_seed(self) -> torch.Tensor:
+        """The seed of the ray-traced packs' draws, from the bits of
+        ``qpos[:, 0]`` on the device, so each physics state gets fresh draws
+        and a render stays a pure function of the sim state."""
+        from ..render.pathtracer import render_seed
+
+        return render_seed(self.data.qpos)
 
     def masked(self, new: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
         """Apply the partial-reset mask to a pending write."""

@@ -54,12 +54,9 @@ def _read_key() -> str:
 
 def save_frame(directory: str, t: int, frame: np.ndarray):
     """A PNG where Pillow is installed, else the array as .npy."""
-    try:
-        from PIL import Image
+    from ...utils.visualization import save_image
 
-        Image.fromarray(frame).save(f"{directory}/{t:05d}.png")
-    except ImportError:
-        np.save(f"{directory}/{t:05d}.npy", frame)
+    save_image(f"{directory}/{t:05d}.png", frame)
 
 
 class _DragEnvFactory:

@@ -3,7 +3,8 @@
 ``Camera.get_obs`` renders the requested modalities with the batched
 rasterizer and applies the "minimal" shader texture contract: rgb uint8,
 depth int16 millimetres, segmentation int16, position int16 millimetres in
-the OpenGL camera frame. The ray-traced shader packs are not ported yet.
+the OpenGL camera frame. A shader pack named ``rt*`` renders through the path
+tracer (``render/pathtracer.py``) instead, with the same output keys.
 """
 from __future__ import annotations
 
@@ -68,8 +69,6 @@ def update_camera_configs_from_dict(configs: Dict[str, CameraConfig], overrides:
 
 class Camera(BaseSensor):
     def __init__(self, config: CameraConfig, scene):
-        if config.shader_pack.startswith("rt"):
-            raise NotImplementedError("ray-traced shader packs are not ported yet")
         super().__init__(config)
         self.scene = scene
         H, W = config.height, config.width
@@ -126,12 +125,30 @@ class Camera(BaseSensor):
             )
         return self._mesh_cache[exclude]
 
-    def capture(self, hidden_actors: Sequence = (), want_normal=False, want_albedo=False):
+    def capture(self, hidden_actors: Sequence = (), want_normal=False, want_albedo=False,
+                draws: Optional[dict] = None):
+        """Render the buffers. An ``rt*`` pack path-traces; ``draws`` may hand
+        it its ``jitter`` and ``bounce_draws`` (else they come from the scene's
+        render seed)."""
         mesh = self._get_mesh(hidden_actors)
         gpos, gquat = geom_poses(self.scene.model, self.scene.data)
+        wv = mesh.world_vertices(gpos, gquat)
+        pack = self.config.shader_pack
+        if pack.startswith("rt"):
+            from ..render.pathtracer import RT_PACKS, pathtrace
+
+            cfg = RT_PACKS.get(pack, RT_PACKS["rt-fast"])
+            pose = self.world_pose()
+            rot = torch.einsum("bij,jk->bik", rc.quaternion_to_matrix(pose.q), self._ros_to_gl.T)  # gl cam -> world
+            return mesh, pathtrace(
+                mesh, wv, pose.p, rot, self.fx, self.fy, self.cx, self.cy,
+                self.config.height, self.config.width,
+                spp=cfg["spp"], bounces=cfg["bounces"], denoise=cfg["denoise"],
+                lights=self.scene.lights, seed=self.scene.render_seed(), **(draws or {}),
+            )
         return mesh, rasterize(
             mesh,
-            mesh.world_vertices(gpos, gquat),
+            wv,
             self._view_matrix(),
             self.proj,
             self.config.height,
@@ -150,8 +167,9 @@ class Camera(BaseSensor):
         normal: bool = False,
         albedo: bool = False,
         hidden_actors: Sequence = (),
+        draws: Optional[dict] = None,
     ) -> Dict[str, torch.Tensor]:
-        _, buf = self.capture(hidden_actors, want_normal=normal, want_albedo=albedo)
+        _, buf = self.capture(hidden_actors, want_normal=normal, want_albedo=albedo, draws=draws)
         return self.obs_from_buffer(buf, rgb, depth, segmentation, position, normal, albedo)
 
     def obs_from_buffer(self, buf, rgb=True, depth=False, segmentation=False, position=False, normal=False,

@@ -124,6 +124,22 @@ class Actor:
         self.set_linear_velocity(state[..., 7:10])
         self.set_angular_velocity(state[..., 10:13])
 
+    # -- forces ----------------------------------------------------------
+    def apply_force(self, force, torque=None):
+        """Add a world-frame external force at the COM (and a torque) for the
+        next physics substep, which consumes it; calls before it sum, and a
+        body-body drive's wrench adds to them in that substep."""
+        scene = self.scene
+        x = scene.data.xfrc_applied.clone()
+        x[:, self.body_id, :3] += scene.to_batch(force, 3)
+        if torque is not None:
+            x[:, self.body_id, 3:] += scene.to_batch(torque, 3)
+        scene.data = scene.data.replace(xfrc_applied=x)
+
+    def get_net_contact_forces(self) -> torch.Tensor:
+        """Net contact force (B, 3) on this actor."""
+        return self.scene.net_contact_forces_for_bodies([self.body_id])
+
     @property
     def geom_ids(self) -> np.ndarray:
         """The ids of this actor's geoms in the model."""

@@ -74,6 +74,18 @@ class Pose:
         batch = torch.broadcast_shapes(p.shape[:-1], q.shape[:-1])
         return cls(torch.cat([p.expand(batch + (3,)), q.expand(batch + (4,))], -1))
 
+    @classmethod
+    def identity(cls, batch_shape=(), device=None) -> "Pose":
+        """Identity poses of ``batch_shape`` (a tensor on ``device``)."""
+        raw = torch.zeros(tuple(batch_shape) + (7,), device=device)
+        raw[..., 3] = 1.0
+        return cls(raw)
+
+    @classmethod
+    def from_matrix(cls, m: torch.Tensor) -> "Pose":
+        """Poses of (..., 4, 4) homogeneous transforms."""
+        return cls(torch.cat([m[..., :3, 3], rc.matrix_to_quaternion(m[..., :3, :3])], -1))
+
     @property
     def p(self):
         return self.raw_pose[..., :3]
@@ -85,6 +97,27 @@ class Pose:
     @property
     def shape(self):
         return tuple(self.raw_pose.shape[:-1])
+
+    def replace(self, p=None, q=None) -> "Pose":
+        """A new pose with ``p`` and/or ``q`` replaced, each broadcast to the
+        batch (a tensor pose where any of them is a tensor)."""
+        raw = self.raw_pose
+        if _is_tensor(raw, p, q):
+            ref = next(x for x in (raw, p, q) if isinstance(x, torch.Tensor))
+            raw = _as_tensor_like(raw, ref).clone()
+            if p is not None:
+                raw[..., :3] = _as_tensor_like(p, ref)
+            if q is not None:
+                raw[..., 3:] = _as_tensor_like(q, ref)
+            return Pose(raw)
+        raw = np.array(raw, copy=True)
+        if p is not None:
+            raw[..., :3] = np.asarray(p, raw.dtype)
+        if q is not None:
+            raw[..., 3:] = np.asarray(q, raw.dtype)
+        return Pose(raw)
+
+    set_p = replace
 
     def __mul__(self, other) -> "Pose":
         """Pose composition: (self * other)(x) == self(other(x))."""
@@ -111,6 +144,40 @@ class Pose:
         q_inv = raw[..., 3:] * np.array([1.0, -1.0, -1.0, -1.0], raw.dtype)
         return Pose(np.concatenate([-_quat_apply(q_inv, raw[..., :3]), q_inv], -1))
 
+    def transform_point(self, point):
+        """``point`` (..., 3) mapped by the pose: p + q * point."""
+        raw = self.raw_pose
+        if _is_tensor(raw, point):
+            ref = raw if isinstance(raw, torch.Tensor) else point
+            raw, point = _as_tensor_like(raw, ref), _as_tensor_like(point, ref)
+        return raw[..., :3] + _quat_apply(raw[..., 3:], point)
+
+    def to_transformation_matrix(self):
+        """(..., 4, 4) homogeneous transforms (numpy for a host pose)."""
+        raw = self.raw_pose
+        if isinstance(raw, torch.Tensor):
+            m = torch.zeros(self.shape + (4, 4), dtype=raw.dtype, device=raw.device)
+            m[..., :3, :3] = rc.quaternion_to_matrix(raw[..., 3:])
+            m[..., :3, 3] = raw[..., :3]
+            m[..., 3, 3] = 1.0
+            return m
+        w, x, y, z = (raw[..., 3 + i] for i in range(4))
+        rot = np.stack([
+            1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+            2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+            2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+        ], axis=-1).reshape(self.shape + (3, 3))
+        m = np.zeros(self.shape + (4, 4), dtype=raw.dtype)
+        m[..., :3, :3] = rot
+        m[..., :3, 3] = raw[..., :3]
+        m[..., 3, 3] = 1.0
+        return m
+
     def __repr__(self):
         return f"Pose(shape={self.shape})"
+
+
+def vectorize_pose(pose) -> Union[torch.Tensor, np.ndarray]:
+    """The (..., 7) raw pose of a Pose or of an array-like."""
+    return Pose.create(pose).raw_pose
 

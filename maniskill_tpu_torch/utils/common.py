@@ -17,6 +17,36 @@ def to_tensor(x: Any, device=None, dtype=None) -> torch.Tensor:
     return x.to(device=device if device is not None else x.device, dtype=dtype or x.dtype)
 
 
+def to_numpy(x: Any) -> Any:
+    """Tensors (in nested dicts, lists and tuples) as numpy arrays on the host."""
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_numpy(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return x
+
+
+def batch(x: Any) -> Any:
+    """A leading batch axis of 1 on array-likes (in nested dicts)."""
+    if isinstance(x, dict):
+        return {k: batch(v) for k, v in x.items()}
+    return to_tensor(x)[None]
+
+
+def unbatch(x: Any) -> Any:
+    """The leading batch axis of size 1 removed (in nested dicts, lists and
+    tuples); other values as they are."""
+    if isinstance(x, dict):
+        return {k: unbatch(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(unbatch(v) for v in x)
+    if isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim > 0 and x.shape[0] == 1:
+        return x[0]
+    return x
+
+
 def flatten_state_dict(state_dict: Dict) -> torch.Tensor:
     """Flatten a nested dict of batched tensors into one (B, D) tensor
     (ordered, recursive, column concat)."""
@@ -40,6 +70,31 @@ def flatten_state_dict(state_dict: Dict) -> torch.Tensor:
     if not leaves:
         return torch.zeros(0)
     return torch.cat(leaves, -1)
+
+
+def flatten_dict_keys(d: Dict, prefix: str = "") -> Dict:
+    """A nested dict as one level, keys joined with "/"."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flatten_dict_keys(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def append_dict_array(x1, x2):
+    """Nested dicts of arrays concatenated leaf by leaf along axis 0 (numpy)."""
+    if isinstance(x1, dict):
+        return {k: append_dict_array(x1[k], x2[k]) for k in x1}
+    return np.concatenate([np.asarray(to_numpy(x1)), np.asarray(to_numpy(x2))], axis=0)
+
+
+def index_dict_array(x, idx):
+    """Every leaf of a nested dict indexed by ``idx``."""
+    if isinstance(x, dict):
+        return {k: index_dict_array(v, idx) for k, v in x.items()}
+    return x[idx]
 
 
 def compute_angle_between(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,7 @@ and controllers describe themselves with: ``Box`` and ``Dict``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict as TDict
+from typing import Any, Dict as TDict, Optional
 
 import numpy as np
 import torch
@@ -22,7 +22,18 @@ class Box:
         self.low = np.broadcast_to(np.asarray(low, self.dtype), self.shape).copy()
         self.high = np.broadcast_to(np.asarray(high, self.dtype), self.shape).copy()
 
+    def sample(self, rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """A uniform draw from the box (a standard normal draw along an
+        unbounded dimension), as gymnasium's ``Box.sample`` draws."""
+        rng = rng if rng is not None else np.random.default_rng()
+        bounded = np.isfinite(self.low) & np.isfinite(self.high)
+        out = np.where(bounded, rng.uniform(np.where(bounded, self.low, 0.0), np.where(bounded, self.high, 1.0)),
+                       rng.standard_normal(self.shape))
+        return out.astype(self.dtype)
+
     def __repr__(self):
+        if not self.low.size:
+            return f"Box({self.shape}, {self.dtype})"
         return f"Box({self.low.min()}, {self.high.max()}, {self.shape}, {self.dtype})"
 
 

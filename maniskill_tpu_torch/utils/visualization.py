@@ -50,3 +50,20 @@ def images_to_video(images: List, output_dir: str, video_name: str, fps: int = 3
 
 def put_info_on_image(image, info: dict, extras=None, overlay=True):
     return image  # text overlay needs font rendering; the reference's is a no-op too
+
+
+def save_image(path: str, image) -> str:
+    """An (H, W, 3) uint8 image as a PNG at ``path`` where Pillow is
+    installed, else as the array in a ``.npy`` beside it (same stem); returns
+    the path written."""
+    if isinstance(image, torch.Tensor):
+        image = image.detach().cpu().numpy()
+    image = np.asarray(image)
+    try:
+        from PIL import Image
+    except ImportError:
+        path = os.path.splitext(path)[0] + ".npy"
+        np.save(path, image)
+        return path
+    Image.fromarray(image).save(path, format="PNG")
+    return path

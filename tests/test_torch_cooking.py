@@ -59,17 +59,21 @@ def test_cooking_matches_reference(model_id):
 
 
 def test_real_assets_are_refused(tmp_path, monkeypatch):
-    """Where the real YCB files exist, the port raises naming them instead of
-    building a stand-in the JAX package would not build."""
+    """Where the real YCB files exist, the port builds from them as the JAX
+    package does, never from a stand-in: its ``collision.ply`` is refused by
+    the mesh reader (``ValueError``, in both packages), and an empty
+    ``textured.obj`` gives the same empty visual."""
     model = tmp_path / "assets" / "mani_skill2_ycb" / "models" / "025_mug"
     model.mkdir(parents=True)
     (model / "collision.ply").write_text("")
     (model / "textured.obj").write_text("")
     monkeypatch.setattr(tycb, "ASSET_DIR", tmp_path)
-    with pytest.raises(NotImplementedError, match="collision.ply"):
-        tycb.load_model_mesh("025_mug")
-    with pytest.raises(NotImplementedError, match="textured.obj"):
-        tycb.load_model_visual("025_mug")
+    monkeypatch.setattr(jycb, "ASSET_DIR", tmp_path)
+    for ycb in (tycb, jycb):
+        with pytest.raises(ValueError, match="collision.ply"):
+            ycb.load_model_mesh("025_mug")
+    for t, j in zip(tycb.load_model_visual("025_mug"), jycb.load_model_visual("025_mug")):
+        assert np.asarray(t).shape == np.asarray(j).shape and np.asarray(t).size == 0
     with pytest.raises(KeyError):
         tycb.load_model_mesh("999_unknown")
 

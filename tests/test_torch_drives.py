@@ -10,7 +10,8 @@
   within 1e-4;
 - ``Drive.set_drive_target`` under a partial-reset mask, ``set_drive_property``
   and the articulation's joint-drive API against the JAX package's;
-- both teleoperation CLIs with ``_read_key`` fed a key script.
+- both teleoperation CLIs with ``_read_key`` fed a key script, and
+  ``interactive_panda``'s browser front end fed one posted key.
 """
 import numpy as np
 import pytest
@@ -292,5 +293,14 @@ def test_interactive_panda_cli_moves_the_tcp(monkeypatch):
     tcp = out["tcp"]
     assert tcp.shape == (5, 3) and np.isfinite(out["reward"]).all()
     assert tcp[1, 0] - tcp[0, 0] > 0.02 and tcp[3, 2] - tcp[1, 2] > 0.02
-    with pytest.raises(NotImplementedError, match="browser viewer"):
-        interactive_panda.main(["--device", "cpu", "--browser", "8400"])
+    # the browser front end (a free port): one posted key, one step
+    import json
+    import urllib.request
+
+    def post_w(viewer):
+        req = urllib.request.Request(f"http://127.0.0.1:{viewer.port}/api/event", method="POST",
+                                     data=json.dumps({"type": "key", "key": "w"}).encode())
+        urllib.request.urlopen(req, timeout=30).close()
+
+    out = interactive_panda.main(["--device", "cpu", "--browser", "0", "--max-steps", "1"], on_start=post_w)
+    assert out["tcp"].shape == (1, 3) and out["tcp"][0, 0] - out["tcp0"][0] > 0.02
