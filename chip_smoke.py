@@ -404,6 +404,28 @@ Phases (the first failure exits non-zero; nothing is caught and ignored):
  56. The seven demos at one env, beside phases 32-38:
      demo_reset_distribution under rt-fast, demo_manual_control fed a key
      script, the rest at their defaults.
+ 57. Sim2RealEnv on the card: SO100GraspCube-v1 rgb at one env under
+     FlattenRGBDObservationWrapper (rgb and state), LeRobotRealAgent over a
+     stub SO100 follower (its bus tracks the commanded degrees, its camera
+     serves 480x640 uint8 frames), a non-prompting reset with the data check
+     on, 2 resets and 20 zero-action steps at the env's 20 Hz: one kernel
+     launch per sim reset (4), none in a step; the sim qpos equal to the
+     stub's within 1e-5 after every step; the real frame the stub's
+     cropped and resized, on the card; _sync_sim_from_real under torch's
+     sync check and profiled (0 syncs, 1 host-to-device copy); the last
+     state's frame through the kernel bit-equal to the plain version, its
+     ms against the bound; seconds per real step against control_dt.
+ 58. make_sharded_ppo_step([cuda:0], num_envs=4096) at the reference's
+     PPOConfig(rollout_steps=2, update_epochs=1, num_minibatches=1): its
+     "dryrun_multichip ok:" line, a train step's ms, the loss finite; the
+     same trajectory through PPOTrainer's update from the same parameters,
+     optimizer state and generator: the parameters equal (gap 0).
+ 59. The assets, beside phases 32-38 in phase 54-56's process: the
+     registry's sources and groups against the port's tables (195, 10),
+     download_asset of a file:// zip written here (checksum accepted) and
+     of a corrupted copy (refused, nothing written), and the five URDF
+     generators rewriting the port's URDFs byte for byte in a copy of
+     assets/robots.
  Phase 16 also runs the planner on PickSingleYCB-v1, PegInsertionSide-v1
  and PlugCharger-v1 at 1024 envs; their limits are the JAX package's own
  rates less 0.15 (PlugCharger's is under 0, so only its syncs are checked),
@@ -799,6 +821,24 @@ RENDER_MODES = (1024, 128, 128)
 # its defaults (Cartpole rgb @1024, 60 steps)
 GPU_SIM = ("PickCube-v1", 4096, 20)
 BENCH_RENDER_STEPS = 60
+# phase 57: Sim2RealEnv over SO100GraspCube-v1 rgb at one env (under
+# FlattenRGBDObservationWrapper, rgb and state) and LeRobotRealAgent driving a
+# stub SO100 follower whose bus tracks the commanded degrees and whose camera
+# serves SIM2REAL_FRAME uint8 frames: (env, resets, steps) after the
+# construction's data check, zero actions at the env's 20 Hz
+SIM2REAL = ("SO100GraspCube-v1", 2, 20)
+SIM2REAL_FRAME = (480, 640)
+SIM2REAL_QPOS_TOL = 1e-5
+SO100_MOTORS = ("shoulder_pan", "shoulder_lift", "elbow_flex", "wrist_flex", "wrist_roll", "gripper")
+# phase 58: make_sharded_ppo_step on the one card at the reference's config
+# (PPOConfig(rollout_steps=2, update_epochs=1, num_minibatches=1))
+SHARDED_PPO_ENVS = 4096
+# phase 59: the asset registry's sizes from the port's tables (the fixed
+# sources and one per PartNet-Mobility model of the five meta files), and
+# the five URDF generators, in phase 54-56's process
+ASSET_SOURCES, ASSET_GROUPS = 195, 10
+GENERATORS = ("ability_hand/generate.py", "inspire_hand/generate.py", "stompy/generate.py",
+              "unitree_g1/generate_g1.py", "unitree_h1/generate_h1_hands.py")
 # phases 54-56's host-bound parts (the viewer, gpu_sim, the demos) run in a
 # process of their own beside phases 32-38
 SLICE17_SHARED = (" (in a process of its own beside phases 32-34, their processes and those of phases 42 and 44, "
@@ -4355,9 +4395,215 @@ def demos_phase(torch, card, tr, tiled_inputs, geom_poses, tmp):
     return launches, [x.cpu() if isinstance(x, torch.Tensor) else x for x in inputs]
 
 
+class StubFollower:
+    """A LeRobot SO100 follower arm with no hardware: its bus reads back the
+    commanded degrees, its camera serves one fixed uint8 frame."""
+
+    name = "so100_follower"
+
+    def __init__(self, deg):
+        self.bus = self
+        self.pos = dict(zip(SO100_MOTORS, (float(d) for d in deg)))
+        self.cameras = {"base_camera": self}
+        h, w = SIM2REAL_FRAME
+        self.frame = (np.arange(h * w * 3) % 251).astype(np.uint8).reshape(h, w, 3)
+        self.sent = 0
+
+    def sync_read(self, what):
+        return dict(self.pos)
+
+    def send_action(self, action):
+        self.sent += 1
+        self.pos = {k: float(action[f"{k}.pos"]) for k in SO100_MOTORS}
+
+    def async_read(self):
+        return self.frame
+
+    def connect(self):
+        pass
+
+    def disconnect(self):
+        pass
+
+
+def sim2real_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
+    """Phase 57: Sim2RealEnv on the card over LeRobotRealAgent and a stub
+    SO100 follower. Returns the kernel's max error on its frames."""
+    from maniskill_tpu_torch.agents.robots.lerobot import LeRobotRealAgent
+    from maniskill_tpu_torch.envs.sim2real_env import Sim2RealEnv, _center_crop_resize
+    from maniskill_tpu_torch.utils.timing import profile_calls
+    from maniskill_tpu_torch.wrappers.flatten import FlattenRGBDObservationWrapper
+
+    uid, n_resets, n_steps = SIM2REAL
+    t0 = time.perf_counter()
+    sim = FlattenRGBDObservationWrapper(make(uid, num_envs=1, obs_mode="rgb", device=dev), rgb=True, depth=False,
+                                        state=True)
+    base = sim.unwrapped
+    offsets = np.array([LeRobotRealAgent.CALIBRATION_OFFSETS_DEG["so100_follower"].get(k, 0.0)
+                        for k in SO100_MOTORS])
+    stub = StubFollower(np.rad2deg(base.agent.robot.qpos[0].cpu().numpy()) + offsets)
+    frames, max_err = [], 0.0
+
+    def reset_fn(env, seed=None, options=None):  # the default's sim reset and soft move, with no prompt
+        frames.append(env.sim_env.reset(seed=seed, options=options)[0])
+        env.agent.reset(env.base_sim_env.agent.robot.qpos.cpu().numpy().reshape(-1))
+
+    tr.KERNEL.launches = 0
+    env = Sim2RealEnv(sim, LeRobotRealAgent(stub), real_reset_function=reset_fn)
+    obs = None
+    for i in range(n_resets):
+        obs, _ = env.reset(seed=i)
+    zero = np.zeros(base.single_action_space.shape, np.float32)
+    stub_qpos = lambda: np.deg2rad(np.array([stub.pos[k] for k in SO100_MOTORS]) - offsets)  # noqa: E731
+    gaps = []
+    t1 = time.perf_counter()
+    for _ in range(n_steps):
+        obs, rew, term, trunc, info = env.step(zero)
+        gaps.append(float(np.abs(base.agent.robot.qpos[0].cpu().numpy() - stub_qpos()).max()))
+    step_s = (time.perf_counter() - t1) / n_steps
+    launches = tr.KERNEL.launches
+    total_s = time.perf_counter() - t0
+    check(launches == 2 + n_resets, f"sim2real: {launches} kernel launches, not one per sim reset ({2 + n_resets})")
+    check(max(gaps) <= SIM2REAL_QPOS_TOL, f"sim2real: sim qpos off the stub's by {max(gaps):.2e}")
+    want = torch.as_tensor(_center_crop_resize(stub.frame, 128, 128), device=dev)[None]
+    check(tuple(obs["rgb"].shape) == (1, 128, 128, 3) and obs["rgb"].device.type == "cuda"
+          and bool(torch.equal(obs["rgb"], want)), f"sim2real: real frame {tuple(obs['rgb'].shape)} on "
+          f"{obs['rgb'].device}, not the stub's cropped and resized")
+    sim_state = frames[-1]["state"]
+    check(obs["state"].shape == sim_state.shape and obs["state"].dtype == sim_state.dtype
+          and bool(torch.isfinite(obs["state"]).all()),
+          f"sim2real: state {tuple(obs['state'].shape)} against the sim's {tuple(sim_state.shape)}")
+    check(stub.sent >= n_steps, f"sim2real: {stub.sent} commands sent to the robot in {n_steps} steps")
+    with sync_guard(torch, "sim2real _sync_sim_from_real"):
+        env._sync_sim_from_real()
+    # the profiler now and then loses a device record, a copy's too, and never
+    # adds one (scripts/profiler_record_loss.py): at most one copy may show
+    for _ in range(3):
+        _, prof = profile_calls(env._sync_sim_from_real, 1)
+        if prof["h2d_copies"] == 1:
+            break
+    check(prof["syncs"] == 0 and prof["h2d_copies"] <= 1,
+          f"sim2real sync: {prof['syncs']} syncs, {prof['h2d_copies']} host-to-device copies (the real qpos "
+          f"only expected)")
+    # the last sim frame (the last reset's, before its sync) is held to the
+    # plain version by rerendering its state: take the frame's inputs now
+    inputs = camera_inputs(base, base._sensors["base_camera"], tuple(base._hidden_objects), tiled_inputs, geom_poses)
+    before = tr.KERNEL.launches
+    zk, sk, rk, dk = tr.rasterize_tiles(*inputs, 128, 128)
+    zp, sp, rp, dp = tr.rasterize_tiles_ref(*inputs, 128, 128)
+    tr.KERNEL.launches = before
+    torch.cuda.synchronize()
+    check(bool(torch.equal(zk.view(torch.int32), zp.view(torch.int32)) & torch.equal(sk, sp) & torch.equal(rk, rp))
+          and int(dk) == 0, "sim2real: the kernel's frame differs from the plain version's")
+    max_err = max(max_err, (zk - zp).abs().max().item())
+    times = kernel_times(tr.KERNEL, tr, inputs, 128, 128)
+    paths["sim2real_so100_1"] = dict(launches=launches, **times)
+    env.close()
+    print(f"sim2real {uid} x1 (rgb + state, LeRobotRealAgent over a stub follower): construction with the data "
+          f"check, {n_resets} resets and {n_steps} steps in {total_s:.2f} s; {step_s:.4f} s per real step against "
+          f"control_dt {env.control_dt:.4f} s; sim qpos within {max(gaps):.2e} of the robot's after every step; "
+          f"_sync_sim_from_real: {prof['syncs']:.0f} syncs, {prof['h2d_copies']:.0f} host-to-device copies read "
+          f"by the profiler (at most the real qpos's), {prof['launches']:.0f} launches, {prof['wall_ms']:.2f} ms; {launches} kernel launches (one per sim reset) {card}")
+    print(f"raster kernel (sim2real so100, 1x128x128): {times['ms']:.4f} ms/frame vs plain {times['plain_ms']:.3f} "
+          f"ms, bound {times['bound_ms']:.5f} ms ({times['bound_by']}, share {times['bound_ms'] / times['ms']:.4f}), "
+          f"bit-equal {card}")
+    return max_err
+
+
+def sharded_ppo_phase(torch, dev, card):
+    """Phase 58: make_sharded_ppo_step on the one card; the same trajectory
+    through PPOTrainer's update from the same parameters, optimizer state
+    and generator."""
+    import copy
+
+    from maniskill_tpu_torch.parallel import PPOTrainer, make_sharded_ppo_step
+
+    t0 = time.perf_counter()
+    run_once, env = make_sharded_ppo_step([dev], num_envs=SHARDED_PPO_ENVS, smoke=True)
+    built_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = run_once()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(np.isfinite(float(metrics["loss"])) and int(metrics["bad_params"]) == 0,
+          f"sharded ppo: loss {float(metrics['loss'])}, {int(metrics['bad_params'])} bad params")
+    sharded = run_once.trainer
+    raw, _ = env.reset(seed=0)
+    obs = [sharded.trainers[0].obs_tf(raw)]
+    obs, _, trajs = sharded.rollout(obs, [torch.zeros(SHARDED_PPO_ENVS, dtype=torch.int32, device=dev)])
+    one = PPOTrainer(env, sharded.config, raw, seed=0)
+    one.model.load_state_dict(copy.deepcopy(sharded.model.state_dict()))
+    one.optimizer.load_state_dict(copy.deepcopy(sharded.optimizer.state_dict()))
+    one.generator.set_state(sharded.generator.get_state())
+    got, want = sharded.update(obs, trajs), one.update(obs[0], trajs[0])
+    gap = max((p - q).abs().max().item() for p, q in zip(sharded.model.parameters(), one.model.parameters()))
+    check(gap == 0.0 and float(got["loss"]) == float(want["loss"]),
+          f"sharded ppo on one device: parameters off PPOTrainer's by {gap}")
+    print(f"sharded ppo PushCube-v1 x{SHARDED_PPO_ENVS} on [{dev}]: built with its first step in {built_s:.2f} s; "
+          f"a train step (rollout 2, 1 epoch, 1 minibatch) {step_ms:.1f} ms, loss {float(metrics['loss']):.5f}; "
+          f"the same trajectory through PPOTrainer: parameters within {gap} {card}")
+    env.close()
+
+
+def assets_phase(card):
+    """Phase 59: the asset registry's sizes, download_asset of a file:// zip
+    (its checksum accepted, a corrupted copy refused) and the five URDF
+    generators rewriting the port's URDFs byte for byte."""
+    import filecmp
+    import hashlib
+    import os
+    import shutil
+    import zipfile
+    from pathlib import Path
+
+    from maniskill_tpu_torch import PACKAGE_ASSET_DIR
+    from maniskill_tpu_torch.utils import download_asset
+    from maniskill_tpu_torch.utils.assets import data
+
+    n_src, n_groups = len(data.DATA_SOURCES), len(data.DATA_GROUPS)
+    n_pm = len(data.DATA_GROUPS["partnet_mobility"])
+    check((n_src, n_groups) == (ASSET_SOURCES, ASSET_GROUPS),
+          f"asset registry: {n_src} sources, {n_groups} groups (expected {ASSET_SOURCES}, {ASSET_GROUPS})")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with zipfile.ZipFile(tmp / "pack.zip", "w") as z:
+            z.writestr("pack/robot.urdf", "<robot name='stub'/>")
+        sha = hashlib.sha256((tmp / "pack.zip").read_bytes()).hexdigest()
+        corrupt = bytearray((tmp / "pack.zip").read_bytes())
+        corrupt[len(corrupt) // 2] ^= 0xFF
+        (tmp / "bad.zip").write_bytes(bytes(corrupt))
+        for uid, name in (("chip_smoke_good", "pack.zip"), ("chip_smoke_bad", "bad.zip")):
+            data.register_data_source(uid, source_type="robot", url=f"file://{tmp / name}",
+                                      target_path=f"robots/{uid}", checksum=sha, output_dir=tmp / "out")
+        try:
+            good = download_asset.main(["chip_smoke_good", "-y", "--quiet"])
+            bad = download_asset.main(["chip_smoke_bad", "-y", "--quiet"])
+        finally:
+            for uid in ("chip_smoke_good", "chip_smoke_bad"):
+                data.DATA_SOURCES.pop(uid)
+        check(good == 0 and (tmp / "out/robots/chip_smoke_good/robot.urdf").exists(),
+              f"download_asset of a good zip: rc {good}")
+        check(bad == 1 and not (tmp / "out/robots/chip_smoke_bad").exists(),
+              f"download_asset of a corrupted zip: rc {bad}")
+        src = Path(PACKAGE_ASSET_DIR) / "robots"
+        work = tmp / "robots"
+        shutil.copytree(src, work)
+        for urdf in work.rglob("*.urdf"):
+            os.utime(urdf, (0, 0))
+        for gen in GENERATORS:
+            subprocess.run([sys.executable, Path(gen).name], cwd=work / Path(gen).parent, check=True,
+                           capture_output=True, timeout=120)
+        rewritten = sorted(str(p.relative_to(work)) for p in work.rglob("*.urdf") if p.stat().st_mtime > 0)
+        same = [r for r in rewritten if filecmp.cmp(work / r, src / r, shallow=False)]
+        check(len(rewritten) >= 9 and same == rewritten,
+              f"URDF generators: {len(same)} of {len(rewritten)} rewritten URDFs equal the port's")
+    print(f"assets: {n_src} sources ({n_pm} PartNet-Mobility models), {n_groups} groups; download_asset of a "
+          f"file:// zip: checksum accepted (rc {good}), a corrupted copy refused (rc {bad}); the five generators "
+          f"rewrote {len(rewritten)} URDFs, byte for byte {card}")
+
+
 def slice17_worker(card: str):
-    """Phases 54 (the viewer, interactive_panda --browser), 55 (gpu_sim) and
-    56 (the demos) in a process of their own. Returns their seconds and, per
+    """Phases 54 (the viewer, interactive_panda --browser), 55 (gpu_sim), 56
+    (the demos) and 59 (the assets) in a process of their own. Returns their seconds and, per
     kernel path, (launches, the last frame's inputs on the host, H, W)."""
     import torch
 
@@ -4381,6 +4627,9 @@ def slice17_worker(card: str):
         launches, inputs = demos_phase(torch, card, tr, tiled_inputs, geom_poses, tmp)
         kernel_paths["demos_1"] = (launches, inputs, 128, 128)
         seconds["56"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assets_phase(card)
+        seconds["59"] = time.perf_counter() - t0
     return seconds, kernel_paths
 
 
@@ -4796,6 +5045,10 @@ def main(device: str = "cuda"):
     stamp("phase 54's render modes")
     bench_render_phase(torch, card, tr, tiled_inputs, geom_poses, paths)
     stamp("phase 55's bench_render")
+    max_err = max(max_err, sim2real_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths))
+    stamp("phase 57")
+    sharded_ppo_phase(torch, dev, card)
+    stamp("phase 58")
 
     # ---- phases 32-38: record, replay, learn from the files -------------------
     # beside them, phases 42 and 44 (slice 14's state paths and planner) and
@@ -4823,7 +5076,7 @@ def main(device: str = "cuda"):
     paths[f"pushcube_ppo_rgbd_{PPO_RGBD[1]}"] = rgbd
     print(f"raster kernel (pushcube rgbd, {PPO_RGBD[1]}x128x128, phase 29's last frame): {rgbd['ms']:.4f} ms/frame "
           f"vs plain {rgbd['plain_ms']:.3f} ms, bound {rgbd['bound_ms']:.4f} ms ({rgbd['bound_by']}) {card}")
-    stamp("phases 54's viewer, 55's gpu_sim and 56 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice17_s.items())
+    stamp("phases 54's viewer, 55's gpu_sim, 56 and 59 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice17_s.items())
           + " in their process)")
     for name, (launches, inputs, H, W) in slice17_paths.items():
         times = kernel_times(tr.KERNEL, tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in inputs], H, W)

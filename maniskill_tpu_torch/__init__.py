@@ -14,6 +14,7 @@ import os
 # assets/robots/); it reads no file of the JAX package
 PACKAGE_ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
 
+from .utils.logging_utils import logger  # noqa: F401  (the modules' loggers print through its handler)
 from .utils.registration import REGISTERED_ENVS, make, register_env
 
 __all__ = ["register_env", "make", "REGISTERED_ENVS", "__version__", "PACKAGE_ASSET_DIR"]

@@ -38,3 +38,9 @@ __all__ = [
     "PDBaseVelController", "PDBaseVelControllerConfig",
     "PDBaseForwardVelController", "PDBaseForwardVelControllerConfig",
 ]
+
+
+def deepcopy_dict(d):
+    import copy
+
+    return copy.deepcopy(d)

@@ -102,7 +102,9 @@ class BaseController:
 class DictController(BaseController):
     """Combines named sub-controllers into a dict action space."""
 
-    def __init__(self, configs: Dict[str, object], articulation, scene):
+    def __init__(self, configs: Dict[str, object], articulation, scene, balance_passive_force=True):
+        # ``balance_passive_force`` is taken for the JAX package's signature
+        # and, as there, not read
         self.scene = scene
         self.articulation = articulation
         self.configs = configs

@@ -238,7 +238,7 @@ def apply_cabinet_variants(scene, meta: CabinetMeta, inst: CabinetInstance):
         axis=1,
     )
     pair = lambda v: np.repeat(v, 2, axis=1)  # col+vis geom per logical shape
-    scene.set_per_env_geom_sizes(
+    scene.set_per_env_geom_sizes_by_id(
         meta.base_geoms.reshape(-1), pair(shell_sizes)
     )
     scene.set_per_env_geom_pos(meta.base_geoms.reshape(-1), pair(shell_pos))
@@ -302,11 +302,11 @@ def apply_cabinet_variants(scene, meta: CabinetMeta, inst: CabinetInstance):
 
     inst.handle_local = handle_local
     scene.set_per_env_body_pos(meta.slot_bodies, origins)
-    scene.set_per_env_geom_sizes(
+    scene.set_per_env_geom_sizes_by_id(
         meta.panel_geoms.reshape(-1), pair(panel_sizes)
     )
     scene.set_per_env_geom_pos(meta.panel_geoms.reshape(-1), pair(panel_pos))
-    scene.set_per_env_geom_sizes(
+    scene.set_per_env_geom_sizes_by_id(
         meta.handle_geoms.reshape(-1), pair(handle_sizes)
     )
     scene.set_per_env_geom_pos(meta.handle_geoms.reshape(-1), pair(handle_pos))

@@ -89,8 +89,9 @@ def get_partnet_mobility_builder(
     if str(id) not in ds["model_urdf_paths"]:
         raise FileNotFoundError(
             f"PartNet-Mobility model {id} not found under "
-            f"{_asset_dir() / 'partnet_mobility/dataset'}; point MS_ASSET_DIR at a directory "
-            "whose partnet_mobility/dataset/<id>/ holds the model's URDF"
+            f"{_asset_dir() / 'partnet_mobility/dataset'}; download it with "
+            "python -m maniskill_tpu_torch.utils.download_asset partnet_mobility_cabinet, or point "
+            "MS_ASSET_DIR at a directory whose partnet_mobility/dataset/<id>/ holds the model's URDF"
         )
     meta = ds["model_data"].get(str(id), {})
     loader = URDFLoader(scene)

@@ -50,9 +50,18 @@ class BaseEnv:
         sim_config: Union[SimConfig, dict, None] = None,
         sensor_configs: Optional[dict] = None,
         human_render_camera_configs: Optional[dict] = None,
+        enable_shadow: bool = False,
+        sim_backend: str = "auto",
+        render_backend: str = "auto",
+        parallel_in_single_scene: bool = False,
         reconfiguration_freq: Optional[int] = None,
+        enhanced_determinism: bool = False,
         device: Union[str, torch.device, None] = None,
+        **kwargs,
     ):
+        # enable_shadow .. enhanced_determinism and any other keyword are
+        # taken as the JAX package's BaseEnv takes them (it stores
+        # enable_shadow and reads none of them); the port has one backend
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -64,6 +73,7 @@ class BaseEnv:
         self.render_mode = render_mode
         self._control_mode = control_mode
         self.robot_uids = robot_uids
+        self._enable_shadow = enable_shadow
         self._sensor_config_overrides = sensor_configs or {}
         self._human_render_camera_config_overrides = human_render_camera_configs or {}
         # rebuild the scene every this many full resets (0: never)

@@ -211,13 +211,20 @@ class ManiSkillScene:
             return table.expand((self.num_envs,) + tuple(table.shape)).clone()
         return table.clone()
 
-    def set_per_env_geom_sizes(self, geom_ids, sizes):
-        """sizes: (B, K, 3) host array, the primitive sizes of geoms
-        ``geom_ids`` (K,) in each env. The render mirror follows, so a visual
-        geom written here is drawn at its per-env size; a collision geom
-        changes only the physics."""
+    def set_per_env_geom_sizes(self, actor, sizes):
+        """sizes: (B, n_geoms_of_actor, 3) host array, or (B, 3) for a
+        single-geom actor (one size for all of its geoms)."""
+        return self.set_per_env_geom_sizes_by_id(actor.geom_ids, sizes)
+
+    def set_per_env_geom_sizes_by_id(self, geom_ids, sizes):
+        """sizes: (B, K, 3) host array (or (B, 3) for K == 1), the primitive
+        sizes of geoms ``geom_ids`` (K,) in each env. The render mirror
+        follows, so a visual geom written here is drawn at its per-env size;
+        a collision geom changes only the physics."""
         gids = np.asarray(geom_ids, np.int64)
         sizes_np = np.asarray(sizes, np.float32)
+        if sizes_np.ndim == 2:
+            sizes_np = sizes_np[:, None, :]
         gs = self._per_env(self.model.geom_size, 2)
         gs[:, gids] = torch.as_tensor(sizes_np, device=self.device)
         self.model = self.model.replace(geom_size=gs)
@@ -259,13 +266,14 @@ class ManiSkillScene:
         dl[:, adrs] = torch.as_tensor(np.asarray(limits, np.float32), device=self.device)
         self.model = self.model.replace(dof_limit=dl)
 
-    def set_per_env_hulls(self, actor, hulls):
+    def set_per_env_hulls(self, actor, hulls, dirs=None):
         """Per-env convex hull geometry of one actor (a different object in
         each env).
 
         hulls: (B, K, HULL_MAX_VERTS, 3) host array, the local vertex clouds
-        of the actor's K HULL geoms. Their facet normals are computed once
-        per distinct hull and gathered per env (``hull_face_dirs`` is
+        of the actor's K HULL geoms; dirs: optional (B, K, HULL_MAX_DIRS, 3)
+        facet normals. Without ``dirs`` the normals are computed once per
+        distinct hull and gathered per env (``hull_face_dirs`` is
         deterministic, so this equals computing them env by env).
         """
         from ..building.cooking import hull_face_dirs
@@ -276,7 +284,10 @@ class ManiSkillScene:
         if len(hids) != hulls_np.shape[1] and len(hids) % hulls_np.shape[1] == 0:
             # the actor lists its hulls twice (collision geoms and HULL visual
             # geoms from the same specs, in order): the visuals follow
-            hulls_np = np.tile(hulls_np, (1, len(hids) // hulls_np.shape[1], 1, 1))
+            reps = len(hids) // hulls_np.shape[1]
+            hulls_np = np.tile(hulls_np, (1, reps, 1, 1))
+            if dirs is not None:
+                dirs = np.tile(np.asarray(dirs, np.float32), (1, reps, 1, 1))
         assert hulls_np.shape[1] == len(hids), (hulls_np.shape, len(hids))
         if self.host_hull_verts is not None:
             hv = self.host_hull_verts
@@ -284,13 +295,14 @@ class ManiSkillScene:
                 hv = np.broadcast_to(hv, (self.num_envs,) + hv.shape).copy()
             hv[:, hids] = hulls_np
             self.host_hull_verts = hv
-        # distinct hulls keyed by their bytes (bit-identical inputs only)
-        first, inverse = {}, []
-        for h in hulls_np.reshape((-1,) + hulls_np.shape[2:]):
-            inverse.append(first.setdefault(h.tobytes(), len(first)))
-        uniq = np.frombuffer(b"".join(first), np.float32).reshape((-1,) + hulls_np.shape[2:])
-        uniq_dirs = np.stack([hull_face_dirs(h) for h in uniq])
-        dirs = uniq_dirs[np.asarray(inverse)].reshape(hulls_np.shape[:2] + uniq_dirs.shape[1:])
+        if dirs is None:
+            # distinct hulls keyed by their bytes (bit-identical inputs only)
+            first, inverse = {}, []
+            for h in hulls_np.reshape((-1,) + hulls_np.shape[2:]):
+                inverse.append(first.setdefault(h.tobytes(), len(first)))
+            uniq = np.frombuffer(b"".join(first), np.float32).reshape((-1,) + hulls_np.shape[2:])
+            uniq_dirs = np.stack([hull_face_dirs(h) for h in uniq])
+            dirs = uniq_dirs[np.asarray(inverse)].reshape(hulls_np.shape[:2] + uniq_dirs.shape[1:])
         hv_t = self._per_env(self.model.hull_verts, 3)
         hd_t = self._per_env(self.model.hull_dirs, 3)
         hids_t = torch.as_tensor(hids.astype(np.int64), device=self.device)

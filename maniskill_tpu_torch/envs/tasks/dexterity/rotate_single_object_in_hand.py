@@ -80,7 +80,7 @@ class RotateSingleObjectInHand(BaseEnv):
             sizes = np.random.RandomState(2024).uniform(0.03, 0.042, (self.num_envs,)).astype(np.float32)
             gids = self.obj.geom_ids
             hs = np.repeat(np.repeat(sizes[:, None, None], len(gids), 1), 3, 2)
-            self.scene.set_per_env_geom_sizes(gids, hs)
+            self.scene.set_per_env_geom_sizes_by_id(gids, hs)
             return sizes
         return np.full((self.num_envs,), self.base_half_size, np.float32)
 

@@ -106,7 +106,7 @@ class RotateValveEnv(BaseEnv):
             gids = self.spoke_geom_ids()
             sizes = np.broadcast_to(self.scene.host_geom_size[..., gids, :], (self.num_envs, len(gids), 3)).copy()
             sizes[..., 1] *= scales
-            self.scene.set_per_env_geom_sizes(gids, sizes)
+            self.scene.set_per_env_geom_sizes_by_id(gids, sizes)
         kf = self.agent.keyframes["rest"]
         self._rest_qpos = torch.as_tensor(np.asarray(kf.qpos, np.float32), device=self.device)
 

@@ -152,7 +152,7 @@ class SO100GraspCubeEnv(BaseDigitalTwinEnv):
         self.cube_half_sizes = torch.as_tensor(halfs, device=self.device)
         self.host_cube_half_sizes, self.host_cube_frictions = halfs, frictions
         gids = self.cube.geom_ids
-        self.scene.set_per_env_geom_sizes(gids, np.tile(halfs[:, None, None], (1, len(gids), 3)))
+        self.scene.set_per_env_geom_sizes_by_id(gids, np.tile(halfs[:, None, None], (1, len(gids), 3)))
         self.scene.set_per_env_friction(self.cube, frictions)
         super()._after_reconfigure(options)
 

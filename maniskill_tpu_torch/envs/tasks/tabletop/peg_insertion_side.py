@@ -120,7 +120,7 @@ class PegInsertionSideEnv(BaseEnv):
             off = np.zeros((B, 3), np.float32)
             off[:, 1 + axis] = sign * (r + t)
             offsets.append(off)
-        self.scene.set_per_env_geom_sizes([peg_gid] + hole_gids, np.stack(sizes, 1))
+        self.scene.set_per_env_geom_sizes_by_id([peg_gid] + hole_gids, np.stack(sizes, 1))
         self.scene.set_per_env_geom_pos(hole_gids, np.stack(offsets, 1))
 
     def _initialize_episode(self, env_idx: torch.Tensor, options: dict):

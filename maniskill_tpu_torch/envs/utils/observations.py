@@ -41,11 +41,12 @@ def parse_obs_mode_to_struct(obs_mode: str) -> Dict[str, bool]:
     return struct
 
 
-def sensor_data_to_pointcloud(obs: dict) -> dict:
+def sensor_data_to_pointcloud(obs: dict, sensors: dict = None) -> dict:
     """Merge every camera's position map into one world-frame pointcloud:
     millimetres to metres, the camera-to-world (OpenGL) transform, then the
     cameras concatenated. ``xyzw``'s w is 1 on geometry and 0 on the
-    background; rgb and segmentation ride along per point."""
+    background; rgb and segmentation ride along per point. ``sensors`` is
+    taken for the JAX package's signature and, as there, not read."""
     sensor_data = obs.pop("sensor_data")
     params = obs.pop("sensor_param")
     pcds = {"xyzw": [], "rgb": [], "segmentation": []}

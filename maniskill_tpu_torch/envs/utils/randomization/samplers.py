@@ -12,14 +12,16 @@ class UniformPlacementSampler:
     (plus the earlier object's) away from every earlier one: of
     ``candidates`` uniform draws per env it keeps the first that fits, or
     the farthest one if none does. ``bounds`` is a (2, dim) tensor of
-    [low, high] on the env's device."""
+    [low, high] on the env's device; the batch is the generator's, and
+    ``batch_size`` and ``sample``'s ``max_trials`` are taken for the JAX
+    package's signatures (neither is read there either)."""
 
-    def __init__(self, bounds: torch.Tensor, candidates: int = 16):
+    def __init__(self, bounds: torch.Tensor, batch_size: int = None, candidates: int = 16):
         self.lo, self.hi = bounds[0], bounds[1]
-        self.candidates = candidates
+        self.batch_size, self.candidates = batch_size, candidates
         self._placed: List[Tuple[torch.Tensor, float]] = []
 
-    def sample(self, rng, radius: float) -> torch.Tensor:
+    def sample(self, rng, radius: float, max_trials: int = None) -> torch.Tensor:
         """(B, dim) placements from ``rng`` (the env's ``BatchedRNG``)."""
         cands = rng.uniform(0.0, 1.0, (self.candidates, self.lo.shape[0])) * (self.hi - self.lo) + self.lo
         if not self._placed:

@@ -69,7 +69,7 @@ def _x_offset(dx, like: torch.Tensor) -> Pose:
     return Pose(torch.cat([p, q], -1))
 
 
-def solve_push_cube(env):
+def solve_push_cube(env, debug: bool = False):
     """Park behind the cube, then push it through the goal."""
     base = env.unwrapped
     mp = PandaMotionPlanningSolver(env)
@@ -86,7 +86,7 @@ def solve_push_cube(env):
     return mp.move_to_pose(_pose(through, down), refine_steps=6)
 
 
-def solve_pick_cube(env):
+def solve_pick_cube(env, debug: bool = False):
     """Hover, descend, grasp, carry the cube to the goal."""
     base = env.unwrapped
     mp = PandaMotionPlanningSolver(env)
@@ -99,7 +99,7 @@ def solve_pick_cube(env):
     return mp.move_to_pose(_pose(base.goal_site.pose.p, down), refine_steps=10)
 
 
-def solve_pull_cube(env):
+def solve_pull_cube(env, debug: bool = False):
     """Hook behind the cube with a closed gripper and drag it onto the
     goal."""
     base = env.unwrapped
@@ -115,7 +115,7 @@ def solve_pull_cube(env):
     return mp.move_to_pose(_pose(target, down), refine_steps=6)
 
 
-def solve_stack_cube(env):
+def solve_stack_cube(env, debug: bool = False):
     """Grasp A, lift, align above B by the grasp's measured offset, let go."""
     base = env.unwrapped
     mp = PandaMotionPlanningSolver(env)
@@ -133,7 +133,7 @@ def solve_stack_cube(env):
     return mp.open_gripper(steps=6)
 
 
-def solve_place_sphere(env):
+def solve_place_sphere(env, debug: bool = False):
     """Pick the sphere and set it into the bin."""
     base = env.unwrapped
     mp = PandaMotionPlanningSolver(env)
@@ -150,7 +150,7 @@ def solve_place_sphere(env):
     return mp.open_gripper(steps=8)
 
 
-def solve_stack_pyramid(env):
+def solve_stack_pyramid(env, debug: bool = False):
     """Put A flush beside B, then C on top of both. Grasps align with each
     cube's faces; placements hover above the target before descending, so
     the neighbours are not clipped on the way."""
@@ -211,7 +211,7 @@ def solve_stack_pyramid(env):
     return mp.open_gripper(steps=8)
 
 
-def solve_lift_peg_upright(env):
+def solve_lift_peg_upright(env, debug: bool = False):
     """Grasp the lying peg across its axis, lift, turn the wrist 90 degrees
     so the peg points up, lower it to the table, let go."""
     base = env.unwrapped
@@ -238,7 +238,7 @@ def solve_lift_peg_upright(env):
     return mp.open_gripper(steps=8)
 
 
-def solve_pull_cube_tool(env):
+def solve_pull_cube_tool(env, debug: bool = False):
     """Grasp the L tool's handle, sweep its hook behind the cube beyond
     reach, and drag the cube in."""
     base = env.unwrapped
@@ -297,7 +297,7 @@ def ycb_grasp_geometry(base):
     return yaw, pts_w.mean(axis=1).astype(np.float32), gz, ztop.astype(np.float32)
 
 
-def solve_pick_single_ycb(env):
+def solve_pick_single_ycb(env, debug: bool = False):
     """A geometry-aware top-down grasp of each env's YCB object (closing
     across its narrow horizontal extent, low enough to fit the fingers'
     span), then carry it to the goal site and hold still. The reference has
@@ -326,7 +326,7 @@ def solve_pick_single_ycb(env):
 
 
 
-def solve_peg_insertion_side(env):
+def solve_peg_insertion_side(env, debug: bool = False):
     """Grasp the peg toward its tail, carry it in front of the hole, correct
     its residual error three times, and push it in."""
     base = env.unwrapped
@@ -367,7 +367,7 @@ def solve_peg_insertion_side(env):
     return mp.move_to_pose(push.raw_pose, steps=40, refine_steps=8)
 
 
-def solve_plug_charger(env):
+def solve_plug_charger(env, debug: bool = False):
     """Grasp the charger's base, align it with the receptacle's slots, and
     insert it in stages, re-measuring between them."""
     base = env.unwrapped
@@ -441,7 +441,7 @@ def _descend_onto(mp, xy: torch.Tensor, draw_z: float):
     mp.move_to_pose(_pose(_at_height(xy, draw_z), mp.down_q), refine_steps=2)
 
 
-def solve_draw_triangle(env):
+def solve_draw_triangle(env, debug: bool = False):
     """Trace the triangle's three edges with the tip on the canvas."""
     base = env.unwrapped
     mp = PandaMotionPlanningSolver(env, joint_vel_limit=0.7)
@@ -453,7 +453,7 @@ def solve_draw_triangle(env):
     return _trace_polyline(mp, _triangle_waypoints(verts), draw_z, steps_per_seg=6, hover=False)
 
 
-def solve_draw_svg(env):
+def solve_draw_svg(env, debug: bool = False):
     """Trace the target polyline with the tip on the canvas."""
     base = env.unwrapped
     mp = PandaMotionPlanningSolver(env, joint_vel_limit=0.7)

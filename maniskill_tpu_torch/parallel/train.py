@@ -277,6 +277,35 @@ def _tree_map(fn, x):
     return {k: fn(v) for k, v in x.items()} if isinstance(x, dict) else fn(x)
 
 
+def _cat_envs(parts, device):
+    """(T, B_i, ...) tensors, or dicts of them, joined on the env axis on
+    ``device``."""
+    if isinstance(parts[0], dict):
+        return {k: torch.cat([p[k].to(device) for p in parts], 1) for k in parts[0]}
+    return torch.cat([p.to(device) for p in parts], 1)
+
+
+def _update_metrics(losses, traj, advs, params) -> Dict[str, torch.Tensor]:
+    """An update's metrics, as device tensors, from its minibatch losses, the
+    trajectory it learned from, its advantages and the parameters after it."""
+    t_obs, t_act, _, t_rew, t_done, _, t_term = traj
+    obs_leaves = t_obs.values() if isinstance(t_obs, dict) else (t_obs,)
+    with torch.no_grad():
+        return dict(
+            loss=torch.stack(losses).mean(),
+            mean_reward=t_rew.mean(),
+            # the share of finished episodes that ended by termination
+            # (success or fail) rather than truncation
+            ep_success=t_term.sum() / torch.clamp(t_done.sum(), min=1),
+            bad_params=sum((~torch.isfinite(p)).sum() for p in params),
+            bad_rewards=(~torch.isfinite(t_rew)).sum(),
+            term_frac=t_term.to(torch.float32).mean(),
+            bad_obs=sum((~torch.isfinite(x.to(torch.float32))).sum() for x in obs_leaves),
+            max_action=t_act.abs().max(),
+            max_adv=advs.abs().max(),
+        )
+
+
 class PPOTrainer:
     """PPO state on one env (counterpart of make_train_step's init_state and
     train_step): the policy, Adam over it with optax's global-norm clip and,
@@ -363,27 +392,185 @@ class PPOTrainer:
                 if self.scheduler is not None:
                     self.scheduler.step()
                 losses.append(loss.detach())
-        obs_leaves = t_obs.values() if isinstance(t_obs, dict) else (t_obs,)
-        with torch.no_grad():
-            return dict(
-                loss=torch.stack(losses).mean(),
-                mean_reward=t_rew.mean(),
-                # the share of finished episodes that ended by termination
-                # (success or fail) rather than truncation
-                ep_success=t_term.sum() / torch.clamp(t_done.sum(), min=1),
-                bad_params=sum((~torch.isfinite(p)).sum() for p in params),
-                bad_rewards=(~torch.isfinite(t_rew)).sum(),
-                term_frac=t_term.to(torch.float32).mean(),
-                bad_obs=sum((~torch.isfinite(x.to(torch.float32))).sum() for x in obs_leaves),
-                max_action=t_act.abs().max(),
-                max_adv=advs.abs().max(),
-            )
+        return _update_metrics(losses, traj, advs, params)
 
     def train_step(self, obs, elapsed: torch.Tensor):
         """One PPO iteration: rollout, then update. Returns (obs, elapsed,
         metrics)."""
         obs, elapsed, traj = self.rollout(obs, elapsed)
         return obs, elapsed, self.update(obs, traj)
+
+
+def _ppo_shard_loss(model: nn.Module, batch, weight, adv_mean, adv_std, count: int, config: PPOConfig,
+                    with_entropy: bool) -> torch.Tensor:
+    """One shard's part of ``ppo_loss`` over a minibatch spread across
+    shards: ``weight`` (n,) marks the shard's samples in the minibatch, the
+    advantages are normalized with the minibatch's statistics over every
+    shard, and the means divide by the minibatch's ``count``; the shards'
+    parts sum to ``ppo_loss`` of the whole minibatch (the entropy, a term of
+    the parameters alone, is counted on one shard)."""
+    obs, actions, old_logp, advs, returns = batch
+    mean, log_std, value = model(obs)
+    logp = gaussian_logp(actions, mean, log_std)
+    ratio = torch.exp(torch.clamp(logp - old_logp, -20.0, 20.0))
+    advs_n = (advs - adv_mean) / (adv_std + 1e-8)
+    pg1 = ratio * advs_n
+    pg2 = torch.clamp(ratio, 1 - config.clip_eps, 1 + config.clip_eps) * advs_n
+    pg_loss = -torch.sum(weight * torch.minimum(pg1, pg2)) / count
+    v_loss = 0.5 * torch.sum(weight * (value - returns) ** 2) / count
+    loss = pg_loss + config.vf_coef * v_loss
+    if with_entropy:
+        loss = loss - config.ent_coef * torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
+    return loss
+
+
+class ShardedPPOTrainer:
+    """Data-parallel PPO (counterpart of ``make_sharded_ppo_step``'s sharded
+    train step): one ``PPOTrainer`` per device, each over its own env of
+    ``num_envs / len(devices)`` envs with a replica of the policy.
+
+    The update is the one ``PPOTrainer`` makes over the whole batch: the
+    minibatches are drawn from one permutation of every shard's samples (by
+    the first shard's generator, env axis in shard order), each shard weighs
+    its samples in the minibatch, the advantage statistics and the loss's
+    means are reduced over the shards, and the gradients are summed onto the
+    first replica, clipped there and stepped by its Adam; the result is
+    copied to the other replicas. A shard computes its whole share of the
+    batch for each minibatch (the weights keep the shapes static, so no
+    count is read back to the host). With one device it is a
+    ``PPOTrainer``."""
+
+    def __init__(self, envs, config: PPOConfig, raw_obs, seed: int = 0, total_updates: Optional[int] = None):
+        self.config = config
+        self.trainers = [PPOTrainer(env, config, raw, seed=seed + i, total_updates=total_updates)
+                         for i, (env, raw) in enumerate(zip(envs, raw_obs))]
+        lead = self.trainers[0]
+        self.device, self.model, self.optimizer = lead.device, lead.model, lead.optimizer
+        self.generator = lead.generator
+        self._sync_replicas()
+
+    def _sync_replicas(self):
+        with torch.no_grad():
+            for t in self.trainers[1:]:
+                for p, q in zip(self.model.parameters(), t.model.parameters()):
+                    q.copy_(p)
+
+    def rollout(self, obs, elapsed):
+        """Each shard's rollout: lists of (obs, elapsed, traj), one per
+        shard."""
+        out = [t.rollout(o, e) for t, o, e in zip(self.trainers, obs, elapsed)]
+        return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
+
+    def update(self, obs, trajs) -> Dict[str, torch.Tensor]:
+        """The minibatch epochs over every shard's trajectory (``obs`` and
+        ``trajs``: lists, one per shard); the metrics as tensors on the
+        first shard's device."""
+        if len(self.trainers) == 1:
+            return self.trainers[0].update(obs[0], trajs[0])
+        cfg, dev, lead = self.config, self.device, self.trainers[0]
+        batches, widths, advs_all = [], [], []
+        for t, o, traj in zip(self.trainers, obs, trajs):
+            t_obs, t_act, t_logp, t_rew, t_done, t_val, _ = traj
+            with torch.no_grad():
+                last_value = t.model(o)[2]
+            advs, returns = compute_gae(t_rew, t_done, t_val, last_value, cfg.gamma, cfg.gae_lambda)
+            flat = lambda x: x.reshape((-1,) + x.shape[2:])  # noqa: E731
+            batches.append((_tree_map(flat, t_obs), flat(t_act), flat(t_logp), flat(advs), flat(returns)))
+            widths.append(t_act.shape[1])
+            advs_all.append(advs)
+        steps, n_envs = trajs[0][1].shape[0], sum(widths)
+        n = steps * n_envs
+        mb_size = n // cfg.num_minibatches
+        offsets = np.cumsum([0] + widths)
+        params = [list(t.model.parameters()) for t in self.trainers]
+        losses = []
+        for _ in range(cfg.update_epochs):
+            perm = torch.randperm(n, generator=self.generator, device=dev)
+            for i in range(cfg.num_minibatches):
+                member = torch.zeros(n, dtype=torch.float32, device=dev)
+                member[perm[i * mb_size:(i + 1) * mb_size]] = 1.0
+                member = member.view(steps, n_envs)
+                weights = [member[:, offsets[s]:offsets[s + 1]].reshape(-1).to(t.device)
+                           for s, t in enumerate(self.trainers)]
+                with torch.no_grad():
+                    adv_mean = sum((w * b[3]).sum().to(dev) for w, b in zip(weights, batches)) / mb_size
+                    sq = [(w * (b[3] - adv_mean.to(t.device)) ** 2).sum().to(dev)
+                          for w, b, t in zip(weights, batches, self.trainers)]
+                    adv_std = torch.sqrt(sum(sq) / mb_size)
+                total = torch.zeros((), device=dev)
+                for s, (t, w, b) in enumerate(zip(self.trainers, weights, batches)):
+                    t.optimizer.zero_grad(set_to_none=True)
+                    loss = _ppo_shard_loss(t.model, b, w, adv_mean.to(t.device), adv_std.to(t.device), mb_size, cfg,
+                                           with_entropy=s == 0)
+                    loss.backward()
+                    total = total + loss.detach().to(dev)
+                with torch.no_grad():
+                    for lead_p, *others in zip(*params):
+                        for q in others:
+                            lead_p.grad += q.grad.to(dev)
+                clip_by_global_norm_(params[0], cfg.max_grad_norm)
+                lead.optimizer.step()
+                if lead.scheduler is not None:
+                    lead.scheduler.step()
+                self._sync_replicas()
+                losses.append(total)
+        # the shards' trajectories side by side on the env axis, on one device
+        merged = tuple(_cat_envs(parts, dev) for parts in zip(*trajs))
+        return _update_metrics(losses, merged, _cat_envs(advs_all, dev), params[0])
+
+    def train_step(self, obs, elapsed):
+        """One PPO iteration on every shard: rollouts, then the update.
+        Returns (obs, elapsed, metrics), the first two lists per shard."""
+        obs, elapsed, trajs = self.rollout(obs, elapsed)
+        return obs, elapsed, self.update(obs, trajs)
+
+
+def make_sharded_ppo_step(
+    devices=None,
+    num_envs: int = 8,
+    env_id: str = "PushCube-v1",
+    config: PPOConfig = PPOConfig(rollout_steps=2, update_epochs=1, num_minibatches=1),
+    smoke: bool = False,
+):
+    """The data-parallel PPO train step over ``devices`` (a list of
+    ``torch.device``; every visible CUDA device by default), the port's
+    counterpart of the mesh-sharded step: one state env of ``num_envs /
+    len(devices)`` envs on each device, reset with the seeds an unsharded
+    reset of ``num_envs`` envs would take. One step runs before it returns.
+    Returns ``(run_once, env)``: ``run_once()`` takes one train step and
+    returns its metrics (``run_once.trainer`` is the ``ShardedPPOTrainer``);
+    ``env`` is the env, or with several devices the list of the shards'
+    envs."""
+    import maniskill_tpu_torch.envs  # noqa: F401  (registers the tasks)
+
+    from ..utils.registration import make
+
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("no CUDA device is visible; pass devices=[torch.device('cpu')] to run on the CPU")
+    devices = [torch.device(d) for d in devices]
+    assert num_envs % len(devices) == 0, f"num_envs={num_envs} does not split over {len(devices)} devices"
+    per = num_envs // len(devices)
+    envs = [make(env_id, num_envs=per, obs_mode="state", device=d) for d in devices]
+    raw = [env.reset(seed=i * per)[0] for i, env in enumerate(envs)]
+    trainer = ShardedPPOTrainer(envs, config, raw)
+    obs = [t.obs_tf(r) for t, r in zip(trainer.trainers, raw)]
+    elapsed = [torch.zeros(per, dtype=torch.int32, device=d) for d in devices]
+
+    def run_once():
+        nonlocal obs, elapsed
+        obs, elapsed, metrics = trainer.train_step(obs, elapsed)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        return metrics
+
+    run_once.trainer = trainer
+    metrics = run_once()
+    if smoke:
+        print("dryrun_multichip ok:", {k: float(v) for k, v in metrics.items()}, "devices:", len(devices))
+    return run_once, envs[0] if len(envs) == 1 else envs
 
 
 EVAL_STEPS = 50  # one episode of the PPO tasks, as the reference CLIs evaluate

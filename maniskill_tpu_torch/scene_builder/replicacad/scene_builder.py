@@ -3,7 +3,8 @@ maniskill_tpu/scene_builder/replicacad/scene_builder.py).
 
 Two asset paths:
 - With the ReplicaCAD dataset under ``$MS_ASSET_DIR/scene_datasets/
-  replica_cad_dataset``: loads ``configs/scenes/*.json``, cooking each
+  replica_cad_dataset`` (``python -m maniskill_tpu_torch.utils.download_asset
+  ReplicaCAD``): loads ``configs/scenes/*.json``, cooking each
   referenced mesh into hull colliders and a visual mesh. The mesh reader
   takes no ``.glb``, so this build raises in both packages and falls back,
   with a warning, to the procedural apartment.

@@ -166,6 +166,7 @@ class Camera(BaseSensor):
         position: bool = False,
         normal: bool = False,
         albedo: bool = False,
+        apply_texture_transforms: bool = True,
         hidden_actors: Sequence = (),
         draws: Optional[dict] = None,
     ) -> Dict[str, torch.Tensor]:

@@ -58,6 +58,10 @@ class Actor:
         qa = self._q_adr
         return Pose(scene.data.qpos[:, qa : qa + 7])
 
+    @pose.setter
+    def pose(self, pose):
+        self.set_pose(pose)
+
     def set_pose(self, pose):
         if self.is_static:
             raise RuntimeError(f"cannot set pose of static actor {self.name}")
@@ -80,12 +84,20 @@ class Actor:
         va = self._dof_adr
         return self.scene.data.qvel[:, va : va + 3]
 
+    @linear_velocity.setter
+    def linear_velocity(self, v):
+        self.set_linear_velocity(v)
+
     @property
     def angular_velocity(self) -> torch.Tensor:
         if self.is_static or self._mocap_idx is not None:
             return torch.zeros(self.scene.num_envs, 3, device=self.scene.device)
         va = self._dof_adr
         return self.scene.data.qvel[:, va + 3 : va + 6]
+
+    @angular_velocity.setter
+    def angular_velocity(self, v):
+        self.set_angular_velocity(v)
 
     def set_linear_velocity(self, v):
         self._set_vel(0, v)

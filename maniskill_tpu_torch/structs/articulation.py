@@ -124,6 +124,10 @@ class Articulation:
     def qpos(self) -> torch.Tensor:
         return self.scene.data.qpos[:, self._qadr]
 
+    @qpos.setter
+    def qpos(self, value):
+        self.set_qpos(value)
+
     def set_qpos(self, value):
         scene = self.scene
         d = scene.data
@@ -134,6 +138,10 @@ class Articulation:
     @property
     def qvel(self) -> torch.Tensor:
         return self.scene.data.qvel[:, self._vadr]
+
+    @qvel.setter
+    def qvel(self, value):
+        self.set_qvel(value)
 
     def set_qvel(self, value):
         scene = self.scene
@@ -153,6 +161,10 @@ class Articulation:
     @property
     def pose(self) -> Pose:
         return self.root_pose
+
+    @pose.setter
+    def pose(self, p):
+        self.set_root_pose(p)
 
     @property
     def root_pose(self) -> Pose:

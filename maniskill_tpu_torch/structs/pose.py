@@ -68,16 +68,25 @@ class Pose:
         return cls(np.asarray(pose, np.float32))
 
     @classmethod
-    def create_from_pq(cls, p: torch.Tensor, q: torch.Tensor) -> "Pose":
-        """A pose from a position and a wxyz quaternion, each broadcast to the
-        other's batch shape (both tensors on one device)."""
+    def create_from_pq(cls, p=None, q=None) -> "Pose":
+        """A pose from a position (zero if None) and a wxyz quaternion (the
+        identity if None), each broadcast to the other's batch shape: a
+        tensor pose on the device of a tensor argument, else a host pose."""
+        ref = next((x for x in (p, q) if isinstance(x, torch.Tensor)), None)
+        if ref is None:
+            p = np.zeros(3, np.float32) if p is None else np.asarray(p, np.float32)
+            q = np.array([1, 0, 0, 0], np.float32) if q is None else np.asarray(q, np.float32)
+            batch = np.broadcast_shapes(p.shape[:-1], q.shape[:-1])
+            return cls(np.concatenate([np.broadcast_to(p, batch + (3,)), np.broadcast_to(q, batch + (4,))], -1))
+        p = torch.zeros(3, device=ref.device) if p is None else _as_tensor_like(p, ref)
+        q = torch.tensor([1.0, 0.0, 0.0, 0.0], device=ref.device) if q is None else _as_tensor_like(q, ref)
         batch = torch.broadcast_shapes(p.shape[:-1], q.shape[:-1])
         return cls(torch.cat([p.expand(batch + (3,)), q.expand(batch + (4,))], -1))
 
     @classmethod
-    def identity(cls, batch_shape=(), device=None) -> "Pose":
-        """Identity poses of ``batch_shape`` (a tensor on ``device``)."""
-        raw = torch.zeros(tuple(batch_shape) + (7,), device=device)
+    def identity(cls, batch_shape=(), dtype=torch.float32, device=None) -> "Pose":
+        """Identity poses of ``batch_shape`` (a ``dtype`` tensor on ``device``)."""
+        raw = torch.zeros(tuple(batch_shape) + (7,), dtype=dtype, device=device)
         raw[..., 3] = 1.0
         return cls(raw)
 

@@ -1,13 +1,14 @@
 """Common batched helpers (counterpart of maniskill_tpu/utils/common.py)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 
-def to_tensor(x: Any, device=None, dtype=None) -> torch.Tensor:
+def to_tensor(x: Any, dtype=None, device=None) -> torch.Tensor:
     """Array-like / nested numbers -> tensor on ``device`` (float64 -> float32
     unless ``dtype`` says otherwise)."""
     if not isinstance(x, torch.Tensor):
@@ -47,9 +48,10 @@ def unbatch(x: Any) -> Any:
     return x
 
 
-def flatten_state_dict(state_dict: Dict) -> torch.Tensor:
+def flatten_state_dict(state_dict: Dict, use_jax: bool = True) -> torch.Tensor:
     """Flatten a nested dict of batched tensors into one (B, D) tensor
-    (ordered, recursive, column concat)."""
+    (ordered, recursive, column concat). ``use_jax`` is taken for the JAX
+    package's signature and, as there, not read."""
     leaves = []
 
     def visit(d):
@@ -102,6 +104,25 @@ def compute_angle_between(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     n1 = x1 / torch.clamp(torch.linalg.vector_norm(x1, dim=-1, keepdim=True), min=1e-9)
     n2 = x2 / torch.clamp(torch.linalg.vector_norm(x2, dim=-1, keepdim=True), min=1e-9)
     return torch.arccos(torch.clamp(torch.sum(n1 * n2, -1), -1.0, 1.0))
+
+
+def tree_replace_masked(old, new, mask: torch.Tensor):
+    """``new`` where ``mask`` (B,) holds and ``old`` elsewhere, leaf by leaf
+    over nested dicts, lists, tuples and dataclasses of tensors (``Data``,
+    ``Contact``); the mask broadcasts over each leaf's trailing axes. No
+    value is read back to the host."""
+    if isinstance(new, dict):
+        return {k: tree_replace_masked(old[k], v, mask) for k, v in new.items()}
+    if isinstance(new, (list, tuple)):
+        vals = [tree_replace_masked(o, n, mask) for o, n in zip(old, new)]
+        return type(new)(*vals) if hasattr(new, "_fields") else type(new)(vals)
+    if dataclasses.is_dataclass(new):
+        return dataclasses.replace(new, **{f.name: tree_replace_masked(getattr(old, f.name), getattr(new, f.name), mask)
+                                           for f in dataclasses.fields(new)})
+    if not isinstance(new, torch.Tensor):  # None, static fields
+        return new
+    m = mask.reshape(mask.shape + (1,) * (new.ndim - 1))
+    return torch.where(m, new, old)
 
 
 def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

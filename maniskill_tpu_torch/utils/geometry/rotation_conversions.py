@@ -11,8 +11,10 @@ import torch
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Cross product over the last axis, broadcasting like ``jnp.cross``."""
-    a, b = torch.broadcast_tensors(a, b)
+    """Cross product over the last axis, broadcasting like ``jnp.cross``
+    (``linalg.cross`` broadcasts operands of one rank itself)."""
+    if a.ndim != b.ndim:
+        a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
 
 

@@ -27,13 +27,24 @@ class EnvSpec:
         return self.cls(**merged)
 
 
+def register(name: str, cls, max_episode_steps=None, default_kwargs=None) -> EnvSpec:
+    """Record ``cls`` under ``name`` unless the name is taken; returns the
+    name's spec either way."""
+    if name in REGISTERED_ENVS:
+        return REGISTERED_ENVS[name]
+    spec = EnvSpec(name, cls, max_episode_steps, default_kwargs)
+    REGISTERED_ENVS[name] = spec
+    return spec
+
+
 def register_env(uid: str, max_episode_steps=None, override=False, **default_kwargs):
     """Class decorator recording ``cls`` under ``uid``."""
 
     def _register(cls):
         if uid in REGISTERED_ENVS and not override:
             raise ValueError(f"env {uid} already registered")
-        REGISTERED_ENVS[uid] = EnvSpec(uid, cls, max_episode_steps, default_kwargs)
+        REGISTERED_ENVS.pop(uid, None)
+        register(uid, cls, max_episode_steps, default_kwargs)
         cls.uid = uid
         cls.max_episode_steps = max_episode_steps
         return cls

@@ -604,3 +604,49 @@ def test_rt_fast_frame_on_card_equals_cpu(cuda):
     assert float(c["valid"].float().mean()) > 0.2
     for key in ("color", "depth"):
         torch.testing.assert_close(k[key][near], c[key][near], rtol=0, atol=1e-4)
+
+
+def test_sim2real_sync_on_card_makes_no_sync(cuda):
+    """Sim2RealEnv over SO100GraspCube-v1 on the card with a real agent that
+    reports a fixed qpos: ``_sync_sim_from_real`` (a pinned host-to-device
+    copy, a column write, FK) makes no host sync, and the synced scene's
+    qpos and link poses equal the CPU port's after the same sync."""
+    import maniskill_tpu_torch.envs  # noqa: F401
+    from maniskill_tpu_torch import make
+    from maniskill_tpu_torch.agents.base_real_agent import BaseRealAgent
+    from maniskill_tpu_torch.envs.sim2real_env import Sim2RealEnv
+
+    qpos = np.array([0.1, -0.4, 0.3, 0.2, -0.1, 0.05], np.float32)
+
+    class Fixed(BaseRealAgent):
+        def reset(self, qpos=None):
+            pass
+
+        def set_target_qpos(self, q):
+            pass
+
+        def get_qpos(self):
+            return qpos
+
+    envs = []
+    for dev in (cuda, torch.device("cpu")):
+        sim = make("SO100GraspCube-v1", num_envs=1, obs_mode="state", domain_randomization=False, device=dev)
+        envs.append(Sim2RealEnv(sim, Fixed(), real_reset_function=lambda env, seed=None, options=None: None,
+                                skip_data_checks=True))
+    card, cpu = envs
+
+    def to_cpu(x):
+        return {k: to_cpu(v) for k, v in x.items()} if isinstance(x, dict) else x.cpu()
+
+    cpu.base_sim_env.set_state_dict(to_cpu(card.base_sim_env.get_state_dict()))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card._sync_sim_from_real()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu._sync_sim_from_real()
+    k, c = card.base_sim_env, cpu.base_sim_env
+    torch.testing.assert_close(k.agent.robot.qpos.cpu()[0], torch.as_tensor(qpos), rtol=0, atol=1e-6)
+    torch.testing.assert_close(k.scene.data.qpos.cpu(), c.scene.data.qpos, rtol=0, atol=1e-6)
+    torch.testing.assert_close(k.agent.tcp_pose.raw_pose.cpu(), c.agent.tcp_pose.raw_pose, rtol=0, atol=1e-5)

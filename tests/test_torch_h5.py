@@ -155,8 +155,9 @@ def test_refuses_a_new_format_file(tmp_path):
 
 
 def test_data_path_imports_without_jax_h5py_or_imageio(tmp_path):
-    """The port's data path and trainers import no jax, flax, optax,
-    gymnasium, maniskill_tpu, h5py, imageio or pandas: a process that blocks
+    """The port's data path and trainers (and the sim2real, asset and tree
+    modules) import no jax, flax, optax, gymnasium, maniskill_tpu, h5py,
+    imageio or pandas: a process that blocks
     them records two PushCube steps on the CPU, reads the file back and
     trains one Diffusion Policy and one ACT epoch."""
     code = textwrap.dedent(f'''
@@ -188,6 +189,11 @@ def test_data_path_imports_without_jax_h5py_or_imageio(tmp_path):
         from maniskill_tpu_torch.parallel import rfcl
         from maniskill_tpu_torch.trajectory import convert_to_lerobot
         from maniskill_tpu_torch.vector.sb3 import ManiSkillSB3VectorEnv
+        from maniskill_tpu_torch.envs.sim2real_env import Sim2RealEnv
+        from maniskill_tpu_torch.agents.robots.lerobot import LeRobotRealAgent
+        from maniskill_tpu_torch.utils import download_asset, tree, logging_utils
+        from maniskill_tpu_torch.utils.assets import DATA_SOURCES
+        from maniskill_tpu_torch.parallel import make_sharded_ppo_step
         import torch
 
         env = RecordEpisode(make("PushCube-v1", num_envs=2, device="cpu"), {str(tmp_path)!r},

@@ -307,9 +307,7 @@ def test_per_env_render_mesh_matches_reference():
             h.add_convex_collision_from_mesh(part, color=[0.8, 0.6, 0.3, 1.0])
         obj = h.build(name="obj")
         scene.finalize()
-        # the JAX scene takes the actor, the port's the geom ids
-        target = box if Scene is JScene else box.geom_ids
-        scene.set_per_env_geom_sizes(target, np.stack([sizes, sizes], 1))
+        scene.set_per_env_geom_sizes(box, np.stack([sizes, sizes], 1))
         scene.set_per_env_hulls(obj, np.stack([np.stack(c) for c in cooked]))
         meshes.append((JMesh if Scene is JScene else TMesh).build(scene.model, scene))
     jmesh, tmesh = meshes

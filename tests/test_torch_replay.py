@@ -86,6 +86,22 @@ def tail_file(tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jitted_jax_forward():
+    """The JAX package's ``physics.forward``, and the forward kinematics its
+    action converter calls, under ``jax.jit`` for this file: outside any jit
+    they run op by op (~5 s a call here); every JAX env of the file shares
+    one model shape, so each compiles once."""
+    import jax
+    from maniskill_tpu import physics as jphys
+    from maniskill_tpu.agents.controllers.utils import kinematics as jkin
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jphys, "forward", jax.jit(jphys.forward))
+        mp.setattr(jkin, "forward_kinematics", jax.jit(jkin.forward_kinematics))
+        yield
+
+
 def test_jax_replay_by_env_states_ends_past_the_recording(tail_file, capsys):
     out = treplay.main(["--traj-path", tail_file, "--use-env-states", "--device", "cpu"])
     assert out["success"] == [True] and out["state_err"][0] <= 1e-5
