@@ -7,10 +7,16 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases (the first failure exits non-zero; nothing is caught and ignored):
   1. card name and power limit (nvidia-smi), torch version; CUDA required.
-  2. build the tiled-rasterizer CUDA kernel from csrc/ for sm_90a.
-  3. kernel vs its plain torch version on random face sets made with numpy:
-     1/z bit-equal, seg and rgb equal on every pixel, dropped equal (0); one
-     set packs a band's list past 1,024 entries, which is walked whole.
+  2. build the tiled rasterizer's two CUDA kernels from csrc/ for sm_90a
+     (raster_setup.cu and raster_tiles.cu, one nvcc each, side by side).
+  3. each kernel vs its plain torch version on random face sets made with
+     numpy (raster_setup: table bits, validity, whole lists and counts equal;
+     raster_tiles: 1/z bit-equal, seg and rgb equal on every pixel), and the
+     frame end to end, dropped equal (0); one set packs a band's list past
+     1,024 entries, which is walked whole; one is ragged at one env. Every
+     rgb path below checks both kernels so on its last frame, times them
+     against their plain versions (raster_setup against face_records +
+     bin_faces, in turns) and prints their bounds from raster_work.
   4. CartpoleBalanceBenchmark-v1 (1024 envs, one 128x128 RGB camera,
      pd_joint_delta_pos), reset, 50 zero-action steps; rgb shape and content,
      finite state, kernel launches == resets + steps, dropped == 0, and the
@@ -885,16 +891,134 @@ def random_faces(rng, B, F, H, W, band_rows=None):
     return fx, fy, inv_z, ok, rgb, seg
 
 
-def raster_bound_ms(table, counts, height: int, width: int):
-    """(bound ms, "bytes" or "operations") of the raster kernel on these
-    inputs: each input read once (the live list entries only) and each output
-    written once, against the pixel-face tests the band lists need."""
-    B, F, _ = table.shape
-    live = int(counts.sum())
-    nbytes = table.numel() * 4 + live * 4 + counts.numel() * 4 + B * height * width * (4 + 4 + 12)
-    instr = live * 16 * width * RASTER_INSTR_PER_TEST  # 16-row bands, all rows inside H here
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, instr / PEAK_FP32_INSTR_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+class RasterLaunches:
+    """Both raster kernels' launch counts as one. On CUDA ``rasterize_tiles``
+    launches raster_setup, then raster_tiles, once per frame, so a path's two
+    counts are equal: setting ``launches`` sets both (to 0 before a path, back
+    after launches made to compare or to time), and reading it fails unless
+    they are equal."""
+
+    def __init__(self, tr):
+        self.tr = tr
+
+    @property
+    def launches(self) -> int:
+        s, k = self.tr.SETUP.launches, self.tr.KERNEL.launches
+        check(s == k, f"raster_setup launched {s} times, raster_tiles {k}: not every frame went through both kernels")
+        return k
+
+    @launches.setter
+    def launches(self, n: int):
+        self.tr.SETUP.launches = self.tr.KERNEL.launches = n
+
+
+def raster_bounds(tr, fx, idx, counts, height: int, width: int):
+    """The two kernels' bounds on these inputs from ``tr.raster_work``:
+    raster_setup's bytes over the card's memory rate; raster_tiles' pixel-face
+    tests x RASTER_INSTR_PER_TEST over its FP32 instruction rate, or its bytes
+    if longer; and the full-width count of the TPU kernel's layout (every live
+    entry against every column of its band)."""
+    work = tr.raster_work(fx, idx, counts, height, width)
+    t_ops = work["tests"] * RASTER_INSTR_PER_TEST / PEAK_FP32_INSTR_PER_S * 1e3
+    t_bytes = work["tiles_bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_old = work["full_width_tests"] * RASTER_INSTR_PER_TEST / PEAK_FP32_INSTR_PER_S * 1e3
+    return dict(
+        setup=(work["setup_bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes"),
+        tiles=(t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"),
+        full_width_ms=max(t_old, t_bytes),
+        work=work,
+    )
+
+
+def _bit_diff(torch, a, b) -> float:
+    """Max |a - b|, and inf unless a and b are bit-equal."""
+    same = torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 else torch.equal(a, b)
+    return float((a.double() - b.double()).abs().max()) if same else float("inf")
+
+
+def raster_times(tr, inputs, height: int, width: int, reps: int = 20, plain_envs=None):
+    """Both kernels on one frame's ``inputs``: each checked bit-equal to its
+    plain version (raster_setup to ``face_records`` + ``bin_faces`` on every
+    env: table bits, validity, whole lists, counts; raster_tiles to
+    ``raster_bands_ref`` on the first ``plain_envs`` envs, all by default:
+    1/z bits, seg, rgb), timed with CUDA events (raster_setup and its plain
+    version in turns: kernel, plain, plain, kernel; raster_bands_ref once),
+    with their bounds from ``raster_bounds``. The launches made here are not main-path launches.
+    Returns {"raster_setup": {...}, "raster_tiles": {...}}."""
+    import torch
+
+    from maniskill_tpu_torch.utils.timing import cuda_ms
+
+    launches = RasterLaunches(tr)
+    before = launches.launches
+    B = inputs[0].shape[0]
+    m = plain_envs or B
+
+    def plain_setup():
+        table, valid = tr.face_records(*inputs)
+        idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, height, width)
+        return table, valid, idx, counts
+
+    out = tr.SETUP(*inputs, height, width)
+    ref = plain_setup()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("table", "valid", "idx", "counts"), out, ref):
+        check(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)) if name == "table" else torch.equal(a, b)),
+              f"raster_setup {name} differs from face_records/bin_faces at {B}x{height}x{width}")
+    table, _, idx, counts = out
+    plain = {}
+
+    def plain_tiles():
+        plain["out"] = tr.raster_bands_ref(table[:m], idx[:m], counts[:m], height, width)
+
+    k_out = tr.KERNEL(table, idx, counts, height, width)
+    # one call of the plain version, timed cold: it takes up to seconds, and
+    # a warm-up call before it would double that on every path
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_tiles()
+    end.record()
+    torch.cuda.synchronize()
+    p_ms = start.elapsed_time(end)
+    errs = [_bit_diff(torch, a[:m], b) for a, b in zip(k_out, plain["out"])]
+    check(max(errs) == 0.0, f"raster_tiles differs from raster_bands_ref at {B}x{height}x{width} "
+                            f"(max |d| of 1/z, seg, rgb: {errs})")
+    s_ms = cuda_ms(lambda: tr.SETUP(*inputs, height, width), reps)
+    sp_ms = cuda_ms(plain_setup, max(1, reps // 2))
+    sp_ms = (sp_ms + cuda_ms(plain_setup, max(1, reps // 2))) / 2
+    s_ms = (s_ms + cuda_ms(lambda: tr.SETUP(*inputs, height, width), reps)) / 2
+    k_ms = cuda_ms(lambda: tr.KERNEL(table, idx, counts, height, width), reps)
+    km_ms = cuda_ms(lambda: tr.KERNEL(table[:m], idx[:m], counts[:m], height, width), reps) if m < B else k_ms
+    launches.launches = before
+    bounds = raster_bounds(tr, inputs[0], idx, counts, height, width)
+    work = bounds["work"]
+    (sb_ms, sb_by), (tb_ms, tb_by) = bounds["setup"], bounds["tiles"]
+    return {
+        "raster_setup": dict(ms=s_ms, plain_ms=sp_ms, bound_ms=sb_ms, bound_by=sb_by, bound_share=sb_ms / s_ms,
+                             max_abs_err=_bit_diff(torch, out[0], ref[0])),
+        "raster_tiles": dict(ms=k_ms, plain_ms=p_ms, plain_envs=m, ms_plain_envs=km_ms, bound_ms=tb_ms,
+                             bound_by=tb_by, bound_share=tb_ms / k_ms, max_abs_err=max(errs),
+                             tests=work["tests"], full_width_tests=work["full_width_tests"],
+                             full_width_bound_ms=bounds["full_width_ms"], live_per_band=work["live"] / counts.numel(),
+                             fullest_band=int(counts.max())),
+    }
+
+
+def print_raster_times(name: str, shape: str, times, card: str):
+    """The lines ``raster_times`` gives for one path: each kernel's ms against
+    its plain version's and its bound, and the full-width count of the TPU
+    kernel's layout."""
+    s, t = times["raster_setup"], times["raster_tiles"]
+    plain = f"plain {t['plain_ms']:.3f} ms" + (f" on {t['plain_envs']} envs, where the kernel takes "
+                                               f"{t['ms_plain_envs']:.4f}" if t["ms_plain_envs"] != t["ms"] else "")
+    print(f"raster_tiles ({name}, {shape}): {t['ms']:.4f} ms/frame vs {plain}, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}, raster_work): {t['bound_share']:.3f} of it; bit-equal {card}")
+    print(f"raster_setup ({name}, {shape}): {s['ms']:.4f} ms/frame vs plain face_records + bin_faces "
+          f"{s['plain_ms']:.4f} ms (in turns), bound {s['bound_ms']:.4f} ms (bytes): {s['bound_share']:.3f} of it; "
+          f"bit-equal {card}")
+    print(f"raster work ({name}): {t['tests']} pixel-face tests needed, {t['full_width_tests']} at full band width "
+          f"(the TPU layout's count: bound {t['full_width_bound_ms']:.4f} ms, {t['full_width_bound_ms'] / t['ms']:.3f} "
+          f"of this run's kernel); {t['live_per_band']:.1f} live entries per band, fullest {t['fullest_band']}")
 
 
 def rerender_check(base, cam_name, n, tr, tiled_inputs, geom_poses, rgb, name, depth=None, seg=None):
@@ -911,9 +1035,9 @@ def rerender_check(base, cam_name, n, tr, tiled_inputs, geom_poses, rgb, name, d
     H, W = cam.config.height, cam.config.width
     inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(),
                           cam.proj, H, W, lights=base.scene.lights)
-    before = tr.KERNEL.launches
+    before = RasterLaunches(tr).launches
     zk, sk, rk, dk = tr.rasterize_tiles(*inputs, H, W)
-    tr.KERNEL.launches = before  # comparison launches are not main-path launches
+    RasterLaunches(tr).launches = before  # comparison launches are not main-path launches
     zp, sp, rp, dp = tr.rasterize_tiles_ref(*[a[:n] for a in inputs[:5]], inputs[5], H, W)
     torch.cuda.synchronize()
     check(int(dk) == 0, f"{name}: dropped {int(dk)} faces")
@@ -1101,10 +1225,10 @@ def rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     error against the plain version."""
     import statistics
 
-    from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
+    from maniskill_tpu_torch.utils.timing import timed_steps
 
     uid, n_envs, n_steps = PICKCUBE_RGBD
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     modes = ("state", "rgb+depth+segmentation")
     envs = {}
     action = torch.zeros(n_envs, 8, device=dev)
@@ -1142,15 +1266,8 @@ def rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     check(bool(torch.isin(seg, robot_ids).any()), "pickcube rgbd: no robot link's segmentation id is in any frame")
     inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, cam["rgb"],
                                         "pickcube rgbd", depth=cam["depth"], seg=seg)
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
-    before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
-    kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"pickcube_rgbd_seg_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                               bound_by=bound_by)
+    times = raster_times(tr, inputs, 128, 128, 20)
+    paths[f"pickcube_rgbd_seg_{n_envs}"] = dict(launches=launches, **times)
     print(f"pickcube rgbd: {n_steps} steps x {n_envs} envs, kernel launches {launches}, dropped 0, last frame "
           f"of 16 envs re-rendered: int16 depth equal, seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), "
           f"rgb equal; the cube's and the robot's ids present {card}")
@@ -1159,8 +1276,7 @@ def rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
           f"{len(pair_ratios)} alternating step pairs (quartiles {q1:.4f}-{q3:.4f}, ratio of the sums "
           f"{sum(step_s['state']) / sum(step_s['rgb+depth+segmentation']):.4f}; ManiSkill on an RTX 4090: "
           f"{RGBD_RATIO_4090}, for comparison) {card}")
-    print(f"raster kernel (pickcube rgbd, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) {card}")
+    print_raster_times("pickcube rgbd", f"{n_envs}x128x128", times, card)
     return err
 
 
@@ -1285,7 +1401,7 @@ def planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, 
     print(f"planner CLI ({' '.join(cmd[1:])}), alone on the card: {m.group(0)}; phase 16's batch of the same "
           f"seed {rates[uid]:.6f} {card}")
     uid, n_envs = PLANNER_RGBD
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     env, rate = planner_run(torch, dev, make, card, uid, n_envs, "rgb+depth+segmentation", seed=1, kernel=kernel)
     base = env.unwrapped
     launches = kernel.launches
@@ -1298,22 +1414,12 @@ def planner_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, 
         check(bool((cam["segmentation"] == sid).any()), f"planner rgbd: {name}'s segmentation id is in no frame")
     inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, cam["rgb"],
                                         "planner rgbd", depth=cam["depth"], seg=cam["segmentation"])
-    from maniskill_tpu_torch.utils.timing import cuda_ms
-
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
-    before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
-    kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"planner_stackcube_rgbd_seg_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms,
-                                                        bound_ms=bound_ms, bound_by=bound_by)
+    times = raster_times(tr, inputs, 128, 128, 20)
+    paths[f"planner_stackcube_rgbd_seg_{n_envs}"] = dict(launches=launches, **times)
     print(f"planner rgbd {uid} x{n_envs}: kernel launches {launches} == resets + steps, last frame of 16 envs "
           f"re-rendered: int16 depth equal, seg agreement {agree:.6f}, rgb equal; both cubes' ids present; "
           f"success {rate:.6f} vs state {rates[uid]:.6f} {card}")
-    print(f"raster kernel (planner stackcube rgbd, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain "
-          f"{p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) {card}")
+    print_raster_times("planner stackcube rgbd", f"{n_envs}x128x128", times, card)
     return err
 
 
@@ -1394,7 +1500,7 @@ def ycb_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
 
     uid, n_envs, n_steps = YCB_RGB
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
     base = env.unwrapped
@@ -1424,21 +1530,15 @@ def ycb_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
         print(f"{uid} rgb {cam_name}: last frame of 16 envs re-rendered through the plain version: seg "
               f"agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; faces in the scene {inputs[0].shape[1]}")
         if cam_name == "base_camera":
-            table, valid = tr.face_records(*inputs)
-            idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+            times = raster_times(tr, inputs, 128, 128, 20)
             before = kernel.launches
-            k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-            p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
             frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
             kernel.launches = before
-            bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-            paths[f"pickycb_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                                bound_by=bound_by)
-            print(f"raster kernel (pick single ycb base camera, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain "
-                  f"{p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
-            print(f"pick single ycb tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; "
-                  f"faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())} {card}")
-            del table, idx, counts
+            paths[f"pickycb_rgb_{n_envs}"] = dict(launches=launches, **times)
+            print_raster_times("pick single ycb base camera", f"{n_envs}x128x128", times, card)
+            print(f"pick single ycb tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame "
+                  f"{card}")
+            del times
         del inputs
     print(f"{uid} rgb x{n_envs}: {n_envs * n_steps / (step_s * n_steps / (n_steps - 1)):.1f} env-steps/s "
           f"({step_s / (n_steps - 1) * 1e3:.2f} ms/step, eager), kernel launches {launches} "
@@ -1646,7 +1746,7 @@ def peg_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     del env, base, contact
 
     uid, n_envs, n_steps = PEG_RGB
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos",
                geometry_seed=PEG_GEOMETRY_SEED, device=dev)
@@ -1673,24 +1773,17 @@ def peg_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     for actor in (base.peg, base.box):
         seen = (seg == actor.per_scene_id).flatten(1).any(1).float().mean().item()
         check(seen >= 0.9, f"{uid} rgb: the {actor.name} is in view in only {seen:.3f} of the envs")
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    times = raster_times(tr, inputs, 128, 128, 20)
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
     frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
     kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"peginsertionside_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                                 bound_by=bound_by)
+    paths[f"peginsertionside_rgb_{n_envs}"] = dict(launches=launches, **times)
     print(f"{uid} rgb x{n_envs}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} "
           f"ms/step, eager), kernel launches {launches}, last frame of 16 envs re-rendered through the plain "
           f"version: seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; peg and block in view {card}")
-    print(f"raster kernel (peg insertion side, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
-    print(f"peg insertion side tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
-          f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
-          f"{inputs[0].shape[1]} {card}")
+    print_raster_times("peg insertion side", f"{n_envs}x128x128", times, card)
+    print(f"peg insertion side tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame; faces in "
+          f"the scene {inputs[0].shape[1]} {card}")
     return err
 
 
@@ -1769,7 +1862,7 @@ def anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths
     from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
 
     uid, n_envs, n_steps = ANYMAL_RGB
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
     base = env.unwrapped
@@ -1825,26 +1918,19 @@ def anymal_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths
     cam_err = max(cam_err, camera_error())
     check(cam_err <= 1e-5, f"{uid} rgb: the camera is off the base pose times its mount by {cam_err:.3g}")
     check(moved > 1e-3, f"{uid} rgb: the base moved only {moved:.3g} between the reset and the last step")
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    times = raster_times(tr, inputs, 128, 128, 20)
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
     frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
     kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"anymalc_reach_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                                bound_by=bound_by)
+    paths[f"anymalc_reach_rgb_{n_envs}"] = dict(launches=launches, **times)
     print(f"{uid} rgb x{n_envs}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} "
           f"ms/step, eager), kernel launches {launches}, last frame of 16 envs re-rendered through the plain "
           f"version: seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; the camera on the base pose "
           f"times its mount within {cam_err:.3g} in every env, after the steps (the base moved up to "
           f"{moved:.4f}) and at random base poses; the goal in view in {seen:.3f} of the envs {card}")
-    print(f"raster kernel (anymal c reach, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
-    print(f"anymal c reach tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
-          f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
-          f"{inputs[0].shape[1]} {card}")
+    print_raster_times("anymal c reach", f"{n_envs}x128x128", times, card)
+    print(f"anymal c reach tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame; faces in "
+          f"the scene {inputs[0].shape[1]} {card}")
     return err
 
 
@@ -2063,7 +2149,7 @@ def valve_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths)
     from maniskill_tpu_torch.utils.timing import cuda_ms, timed_steps
 
     uid, n_envs, n_steps = VALVE_RGB
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
     base = env.unwrapped
@@ -2092,25 +2178,18 @@ def valve_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths)
     ids = torch.tensor([link.per_scene_id for link in base.valve.links], device=dev)
     valve_px = torch.isin(seg, ids).flatten(1).sum(1)
     check(bool((valve_px > 0).all()), f"{uid} rgb: the valve is out of view in {int((valve_px == 0).sum())} envs")
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    times = raster_times(tr, inputs, 128, 128, 20)
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
     frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
     kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"rotatevalve_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                             bound_by=bound_by)
+    paths[f"rotatevalve_rgb_{n_envs}"] = dict(launches=launches, **times)
     print(f"{uid} rgb x{n_envs}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} "
           f"ms/step, eager), kernel launches {launches}, last frame of 16 envs re-rendered through the plain "
           f"version: seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; the valve in view in every "
           f"env ({int(valve_px.min())}-{int(valve_px.max())} px) {card}")
-    print(f"raster kernel (rotate valve, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
-    print(f"rotate valve tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
-          f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
-          f"{inputs[0].shape[1]} {card}")
+    print_raster_times("rotate valve", f"{n_envs}x128x128", times, card)
+    print(f"rotate valve tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame; faces in "
+          f"the scene {inputs[0].shape[1]} {card}")
     return err
 
 
@@ -2125,7 +2204,7 @@ def grasp_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths)
 
     uid, n_envs, n_steps = GRASP_RGB
     name = f"{uid} rgb+segmentation x{n_envs}"
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     check(not os.path.exists(GRASP_OVERLAY), f"{GRASP_OVERLAY} exists; phase 41 composites the procedural overlay")
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb+segmentation", greenscreen_overlay_path=GRASP_OVERLAY, device=dev)
@@ -2177,27 +2256,20 @@ def grasp_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths)
     robot_px = torch.isin(seg[..., 0], robot_ids).flatten(1).sum(1)
     check(bool((cube_px > 0).all()), f"{name}: the cube is out of view in {int((cube_px == 0).sum())} envs")
     check(bool((robot_px > 0).all()), f"{name}: the robot is out of view in {int((robot_px == 0).sum())} envs")
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    times = raster_times(tr, inputs, 128, 128, 20)
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
     frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
     kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"so100_graspcube_rgbseg_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                                    bound_by=bound_by, bound_share=bound_ms / k_ms)
+    paths[f"so100_graspcube_rgbseg_{n_envs}"] = dict(launches=launches, **times)
     print(f"{name}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} ms/step, "
           f"eager, camera jitter on), kernel launches {launches}, the last raw frame of 16 envs re-rendered through "
           f"the plain version: seg agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; the composite equal to "
           f"where(keep[seg], raw rgb, overlay) in every env and on the plain seg ({kept:.4f} of the pixels kept); "
           f"cube {int(cube_px.min())}-{int(cube_px.max())} px and robot {int(robot_px.min())}-{int(robot_px.max())} "
           f"px in view in every env; the camera on its mount within {pose_gap:.2g} {card}")
-    print(f"raster kernel (so100 grasp cube, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
-    print(f"so100 grasp cube tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per "
-          f"band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene "
-          f"{inputs[0].shape[1]} {card}")
+    print_raster_times("so100 grasp cube", f"{n_envs}x128x128", times, card)
+    print(f"so100 grasp cube tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame; faces in "
+          f"the scene {inputs[0].shape[1]} {card}")
     return err
 
 
@@ -2318,7 +2390,7 @@ def draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
 
     uid, n_envs, n_steps = DRAW_RGB
     name = f"{uid} rgb x{n_envs}"
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb", device=dev)
     base = env.unwrapped
@@ -2366,7 +2438,7 @@ def draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     check(bool(torch.equal((torch.clamp(rp, 0, 1) * 255).to(torch.uint8), rgb[:m])),
           f"{name}: the rgb obs differs from the plain re-render")
     table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, H, W)
+    _, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, H, W)
     q = DRAW_DENSE_ENVS
     _, dense_seg = dense_walk(torch, table[:q], H, W)
     differ = int((dense_seg != sk[:q]).sum())
@@ -2377,20 +2449,13 @@ def draw_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
           f"re-rendered through the plain version: 1/z bit-equal, seg and rgb equal; of {q} envs through an "
           f"unbinned per-face walk over the whole frame: seg equal on every pixel; the fullest band's list "
           f"{full} entries (after the timed loop; {1024} was the reference's cap) {card}")
+    times = raster_times(tr, inputs, H, W, 20, plain_envs=m)
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, H, W), 20)
-    k16_ms = cuda_ms(lambda: kernel(table[:m], idx[:m], counts[:m], H, W), 20)
-    p16_ms = cuda_ms(lambda: tr.raster_bands_ref(table[:m], idx[:m], counts[:m], H, W), 1)
     frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, H, W), 5)
     kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, H, W)
-    paths[f"drawtriangle_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p16_ms, plain_envs=m,
-                                               ms_plain_envs=k16_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                               bound_share=bound_ms / k_ms, fullest_band=full)
-    print(f"raster kernel (draw triangle, {n_envs}x{H}x{W}): {k_ms:.4f} ms/frame, bound {bound_ms:.4f} ms "
-          f"({bound_by}, every live list entry counted: {bound_ms / k_ms:.3f} of it); {m} envs: kernel "
-          f"{k16_ms:.4f} ms vs plain {p16_ms:.3f} ms {card}")
-    print(f"draw triangle tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; faces per band: "
+    paths[f"drawtriangle_rgb_{n_envs}"] = dict(launches=launches, **times)
+    print_raster_times("draw triangle", f"{n_envs}x{H}x{W}", times, card)
+    print(f"draw triangle tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame; faces per band: "
           f"mean {counts.float().mean().item():.1f}, max {full}, faces in the scene {inputs[0].shape[1]} {card}")
     return float((zk[:m] - zp).abs().max())
 
@@ -2545,7 +2610,7 @@ def cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, path
 
     uid, n_envs, n_steps = CABINET_RGB
     _set_cabinet_assets(False)
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb", device=dev)
     base = env.unwrapped
@@ -2576,21 +2641,15 @@ def cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, path
         print(f"{uid} rgb {cam_name}: last frame of 16 envs re-rendered through the plain version: seg "
               f"agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; faces in the scene {inputs[0].shape[1]}")
         if cam_name == "base_camera":
-            table, valid = tr.face_records(*inputs)
-            idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+            times = raster_times(tr, inputs, 128, 128, 20)
             before = kernel.launches
-            k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-            p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
             frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
             kernel.launches = before
-            bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-            paths[f"opencabinetdrawer_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms,
-                                                            bound_ms=bound_ms, bound_by=bound_by)
-            print(f"raster kernel (open cabinet drawer base camera, {n_envs}x128x128): {k_ms:.4f} ms/frame vs "
-                  f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it) {card}")
-            print(f"open cabinet drawer tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame; "
-                  f"faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())} {card}")
-            del table, idx, counts
+            paths[f"opencabinetdrawer_rgb_{n_envs}"] = dict(launches=launches, **times)
+            print_raster_times("open cabinet drawer base camera", f"{n_envs}x128x128", times, card)
+            print(f"open cabinet drawer tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame "
+                  f"{card}")
+            del times
         del inputs
     rate = n_envs * (n_steps - 1) / step_s
     print(f"{uid} rgb x{n_envs}: {rate:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} ms/step, eager, three "
@@ -2658,28 +2717,12 @@ def cabinet_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, path
     return err
 
 
-def kernel_times(kernel, tr, inputs, height: int, width: int):
-    """The raster kernel's and its plain version's ms per frame on
-    ``inputs`` (CUDA events) and its bound; the launches made here are not
-    main-path launches."""
-    from maniskill_tpu_torch.utils.timing import cuda_ms
-
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, height, width)
-    before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, height, width), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, height, width), 1)
-    kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, height, width)
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-
-
 def ppo_rgbd_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses):
     """Phase 29: visual PPO on PushCube rgbd (a depth tower beside the rgb
     one). Returns the kernel's launches in the timed iterations, the last
     frame's inputs (on the host, for the kernel's times taken alone) and its
     max depth error against the plain version."""
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     env, trainer, obs, launches = ppo_phase(torch, dev, make, card, "rgbd", PPO_RGBD, kernel,
                                             profile_steps=PPO_RGBD_PROFILE_STEPS)
     base, n_envs, name = env.unwrapped, PPO_RGBD[1], "pushcube ppo rgbd"
@@ -3058,7 +3101,7 @@ def replay_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths, pa
     from maniskill_tpu_torch.trajectory import replay_trajectory as replay
     from maniskill_tpu_torch.utils import h5
 
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     uid, n_envs = RECORD_CELL
     name = f"replay {uid} rgb x{n_envs}"
     with open(path.replace(".h5", ".json")) as f:
@@ -3112,11 +3155,9 @@ def replay_kernel_times(tr, paths, inputs, launches, card):
     """The kernel's numbers on phase 33's last frame, taken alone on the
     card after the per-episode replays end."""
     n_envs = RECORD_CELL[1]
-    path_numbers = dict(launches=launches, **kernel_times(tr.KERNEL, tr, inputs, 128, 128))
-    paths[f"replay_pickcube_rgb_{n_envs}"] = path_numbers
-    print(f"raster kernel (replay pickcube rgb, {n_envs}x128x128): {path_numbers['ms']:.4f} ms/frame vs plain "
-          f"{path_numbers['plain_ms']:.3f} ms, bound {path_numbers['bound_ms']:.4f} ms "
-          f"({path_numbers['bound_by']}) {card}")
+    times = raster_times(tr, inputs, 128, 128)
+    paths[f"replay_pickcube_rgb_{n_envs}"] = dict(launches=launches, **times)
+    print_raster_times("replay pickcube rgb", f"{n_envs}x128x128", times, card)
 
 
 def episode_replay_worker(argv):
@@ -3272,8 +3313,8 @@ def dp_rgb_worker(rgb_path: str, card: str):
     from maniskill_tpu_torch.render.rasterizer import tiled_inputs
 
     t0 = time.perf_counter()
-    kernel = tr.KERNEL
-    kernel.build()
+    tr.build_kernels()
+    kernel = RasterLaunches(tr)
     name = f"dp rgb {IL_ENV} x{IL_EVAL_ENVS}"
     kernel.launches = 0
     out, printed = _quiet(dp.main, ["--traj-path", rgb_path, "--env-id", IL_ENV, "--obs-mode", "rgb", "--epochs",
@@ -3594,7 +3635,7 @@ def scene_bridge_worker(card: str, scenes: bool, twins, rgb_cells=()):
     seconds["46 " + ", ".join(u.split("-")[0] for u in twins)] = time.perf_counter() - t0
     if rgb_cells:
         t0 = time.perf_counter()
-        tr.KERNEL.build()
+        tr.build_kernels()
         for uid, n_envs, n_steps in rgb_cells:
             launches, inputs, err = bridge_rgb_cell(torch, dev, make, card, tr, tiled_inputs, geom_poses, uid,
                                                     n_envs, n_steps)
@@ -3612,7 +3653,7 @@ def scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths,
 
     uid, n_envs, n_steps = cell
     name = f"{uid} rgb x{n_envs}"
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb", control_mode="pd_joint_delta_pos", device=dev)
     base = env.unwrapped
@@ -3639,16 +3680,12 @@ def scene_rgb_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths,
               f"{name} {cam_name}: rgb is {tuple(rgb.shape)} {rgb.dtype}")
         inputs, e, agree = rerender_check(base, cam_name, 16, tr, tiled_inputs, geom_poses, rgb, f"{name} {cam_name}")
         err = max(err, e)
-        times = kernel_times(kernel, tr, inputs, 128, 128)
-        table, valid = tr.face_records(*inputs)
-        _, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+        times = raster_times(tr, inputs, 128, 128)
         paths[f"{key}_{n_envs}_{cam_name}"] = dict(launches=launches // len(cams), **times)
         print(f"{name} {cam_name}: the last frame of 16 envs re-rendered through the plain version: seg "
-              f"agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; faces per band mean "
-              f"{counts.float().mean().item():.1f}, max {int(counts.max())}, faces in the scene {inputs[0].shape[1]}; "
-              f"raster kernel {times['ms']:.4f} ms/frame vs plain {times['plain_ms']:.3f} ms, bound "
-              f"{times['bound_ms']:.4f} ms ({times['bound_by']}, {times['bound_ms'] / times['ms']:.3f} of it) {card}")
-        del inputs, table, counts
+              f"agreement {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal; faces in the scene {inputs[0].shape[1]}")
+        print_raster_times(f"{name} {cam_name}", f"{n_envs}x128x128", times, card)
+        del inputs
     frame_ms = cuda_ms(lambda: base._sensors["base_camera"].get_obs(rgb=True), 5)
     kernel.launches = launches
     print(f"{name}: {n_envs * (n_steps - 1) / step_s:.1f} env-steps/s ({step_s / (n_steps - 1) * 1e3:.2f} ms/step, "
@@ -3671,9 +3708,9 @@ def bridge_frame_check(torch, base, tr, tiled_inputs, geom_poses, obs, name, pla
     gpos, gquat = geom_poses(base.scene.model, base.scene.data)
     inputs = tiled_inputs(mesh, mesh.world_vertices(gpos, gquat), cam._view_matrix(), cam.proj, H, W,
                           lights=base.scene.lights)
-    before = tr.KERNEL.launches
+    before = RasterLaunches(tr).launches
     zk, sk, rk, dk = tr.rasterize_tiles(*inputs, H, W)
-    tr.KERNEL.launches = before  # comparison launches are not main-path launches
+    RasterLaunches(tr).launches = before  # comparison launches are not main-path launches
     m = plain_envs
     zp, sp, rp, dp = tr.rasterize_tiles_ref(*[a[:m] for a in inputs[:5]], inputs[5], H, W)
     check(int(dk) == 0 and int(dp) == 0, f"{name}: dropped {int(dk)} (kernel), {int(dp)} (plain)")
@@ -3705,7 +3742,7 @@ def bridge_rgb_cell(torch, dev, make, card, tr, tiled_inputs, geom_poses, uid, n
     (``bridge_frame_check``), the source object and the robot in view in
     every env. Returns (launches, the last frame's kernel inputs, the max
     1/z error against the plain version)."""
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     name = f"{uid} rgb+segmentation x{n_envs}"
     t0 = time.perf_counter()
     env = make(uid, num_envs=n_envs, obs_mode="rgb+segmentation", device=dev)
@@ -3755,26 +3792,18 @@ def bridge_rgb_times(torch, dev, tr, paths, rgb, card):
 
     H, W = BRIDGE_FRAME
     m = BRIDGE_PLAIN_ENVS
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     err = 0.0
     for uid, (launches, host_inputs, e) in rgb.items():
         inputs = [x.to(dev) if isinstance(x, torch.Tensor) else x for x in host_inputs]
         n_envs = inputs[0].shape[0]
-        table, valid = tr.face_records(*inputs)
-        idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, H, W)
+        times = raster_times(tr, inputs, H, W, 20, plain_envs=m)
         before = kernel.launches
-        k_ms = cuda_ms(lambda: kernel(table, idx, counts, H, W), 20)
-        km_ms = cuda_ms(lambda: kernel(table[:m], idx[:m], counts[:m], H, W), 20)
-        pm_ms = cuda_ms(lambda: tr.raster_bands_ref(table[:m], idx[:m], counts[:m], H, W), 1)
         frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, H, W), 5)
         kernel.launches = before  # timing launches are not main-path launches
-        bound_ms, bound_by = raster_bound_ms(table, counts, H, W)
-        paths[f"bridge_rgbseg_{uid.split('-')[0]}_{n_envs}"] = dict(
-            launches=launches, ms=k_ms, plain_ms=pm_ms, plain_envs=m, ms_plain_envs=km_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
-        print(f"raster kernel ({uid}, {n_envs}x{H}x{W}, its last frame from phase 48's process): {k_ms:.4f} ms/frame, "
-              f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / k_ms:.3f} of it); {m} envs: kernel {km_ms:.4f} ms vs "
-              f"plain {pm_ms:.3f} ms; tiled render (binning + kernel) {frame_ms:.4f} ms/frame {card}")
+        paths[f"bridge_rgbseg_{uid.split('-')[0]}_{n_envs}"] = dict(launches=launches, **times)
+        print_raster_times(uid, f"{n_envs}x{H}x{W}, its last frame from phase 48's process; tiled render "
+                                f"{frame_ms:.4f} ms/frame", times, card)
         err = max(err, e)
     return err
 
@@ -3998,7 +4027,7 @@ def stereo_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     uid, n_envs, n_steps = STEREO
     H, W = STEREO_SIZE
     name = f"{uid} StereoDepthCamera x{n_envs} {H}x{W}"
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     env = make(uid, num_envs=n_envs, obs_mode="state", control_mode="pd_joint_delta_pos", device=dev)
     scene = env.unwrapped.scene
     zero = torch.zeros(n_envs, 8, device=dev)
@@ -4044,15 +4073,9 @@ def stereo_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     obs_ms = cuda_ms(lambda: cam.get_obs(rgb=True, depth=True, segmentation=True), 5)
     kernel.launches = launches
     for eye, inputs in eyes:
-        times = kernel_times(kernel, tr, inputs, H, W)
-        table, valid = tr.face_records(*inputs)
-        _, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, H, W)
+        times = raster_times(tr, inputs, H, W)
         paths[f"stereo_depth_{n_envs}_{eye}"] = dict(launches=launches // 2, **times)
-        print(f"{name} {eye} eye: faces per band mean {counts.float().mean().item():.1f}, max {int(counts.max())}, "
-              f"faces in the scene {inputs[0].shape[1]}; raster kernel {times['ms']:.4f} ms/frame vs plain "
-              f"{times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}, "
-              f"{times['bound_ms'] / times['ms']:.3f} of it) {card}")
-        del table, counts
+        print_raster_times(f"{name} {eye} eye", f"{n_envs}x{H}x{W}, {inputs[0].shape[1]} faces", times, card)
     print(f"{name}: reset + {n_steps} steps with an observation after each: kernel launches {launches} (2 per "
           f"observation), dropped 0; the last observation's int16 depth of {m} envs equal to the plain version's "
           f"through the same stereo code; {shadow} of {int(fg.sum())} foreground px invalidated as occlusion "
@@ -4181,7 +4204,7 @@ def render_modes_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, pat
     from maniskill_tpu_torch.utils.timing import cuda_ms
 
     n, H, W = RENDER_MODES
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     env = make("PickCube-v1", num_envs=n, obs_mode="state", render_mode="rgb_array", device=dev,
                human_render_camera_configs=dict(width=W, height=H), sensor_configs=dict(width=W, height=H))
     base = env.unwrapped
@@ -4216,12 +4239,11 @@ def render_modes_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, pat
         plain = (torch.clamp(rp, 0, 1) * 255).to(torch.uint8)
         check(bool(torch.equal(plain, frames[mode][:16])), f"render {mode}: differs from the plain re-render")
         err = max(err, float((zk[:16] - zp).abs().max()))
-        times = kernel_times(kernel, tr, inputs, H, W)
+        times = raster_times(tr, inputs, H, W)
         paths[f"pickcube_render_{mode}_{n}"] = dict(launches=1, **times)
         paths[f"pickcube_render_all_{n}_{mode}"] = dict(launches=1, **times)  # "all" draws both cameras
-        print(f"raster kernel (pickcube render {mode}, {n}x{H}x{W}): {times['ms']:.4f} ms/frame vs plain "
-              f"{times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}, "
-              f"{times['bound_ms'] / times['ms']:.3f} of it); 16 envs equal to the plain re-render {card}")
+        print_raster_times(f"pickcube render {mode}", f"{n}x{H}x{W}; 16 envs equal to the plain re-render", times,
+                           card)
     return err
 
 
@@ -4230,7 +4252,7 @@ def bench_render_phase(torch, card, tr, tiled_inputs, geom_poses, paths):
     line printed by the CLI), its launches on the kernel's paths."""
     from maniskill_tpu_torch.examples.benchmarking import bench_render
 
-    kernel = tr.KERNEL
+    kernel = RasterLaunches(tr)
     kernel.launches = 0
     out = bench_render.main([])
     launches = kernel.launches
@@ -4240,9 +4262,11 @@ def bench_render_phase(torch, card, tr, tiled_inputs, geom_poses, paths):
           f"bench_render: {launches} launches (two resets, a warm-up step and {BENCH_RENDER_STEPS} steps), "
           f"{out['value']} fps")
     inputs = camera_inputs(base, cam, (), tiled_inputs, geom_poses)
-    paths["bench_render_cartpole_1024"] = dict(launches=launches, **kernel_times(kernel, tr, inputs, 128, 128))
+    times = raster_times(tr, inputs, 128, 128)
+    paths["bench_render_cartpole_1024"] = dict(launches=launches, **times)
     print(f"bench_render: {out['value']} env*frames/s, vs_baseline {out['vs_baseline']} (RTX 4090: 32,138), "
           f"{launches} kernel launches {card}")
+    print_raster_times("bench_render cartpole", "1024x128x128", times, card)
 
 
 def read_jpeg_part(port):
@@ -4311,11 +4335,11 @@ def viewer_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses):
 
         threading.Thread(target=run, daemon=True).start()
 
-    tr.KERNEL.launches = 0
+    RasterLaunches(tr).launches = 0
     t0 = time.perf_counter()
     out = interactive_panda.main(["--env-id", "PickCube-v1", "--browser", "0", "--max-steps", "3"], on_start=drive)
     wall = time.perf_counter() - t0
-    launches = tr.KERNEL.launches
+    launches = RasterLaunches(tr).launches
     steps = len(out["tcp"])
     moved = float(out["tcp"][-1][0] - out["tcp0"][0]) if steps else 0.0
     check(1 <= steps <= 3 and moved > 0.005 and launches == 1 + steps,
@@ -4352,7 +4376,7 @@ def demos_phase(torch, card, tr, tiled_inputs, geom_poses, tmp):
     from maniskill_tpu_torch.examples import (demo_manual_control, demo_random_action, demo_reset_distribution,
                                               demo_robot, demo_vis_pcd, demo_vis_segmentation, demo_vis_textures)
 
-    tr.KERNEL.launches = 0
+    RasterLaunches(tr).launches = 0
     seconds = {}
 
     def run(name, fn):
@@ -4386,7 +4410,7 @@ def demos_phase(torch, card, tr, tiled_inputs, geom_poses, tmp):
     out = run("vis_textures", lambda: demo_vis_textures.main(["-o", "rgb+depth+normal+segmentation",
                                                               "--out", f"{tmp}/tex.png"]))
     check(len(out["names"]) == 4 and out["tiled"].shape == (256, 256, 3), f"demo_vis_textures: {out['names']}")
-    launches = tr.KERNEL.launches
+    launches = RasterLaunches(tr).launches
     check(launches > 0, "the demos made no kernel launch")
     print("demos at one env: " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
           + f"; {launches} kernel launches (the rasterized frames) {card}")
@@ -4448,7 +4472,7 @@ def sim2real_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
         frames.append(env.sim_env.reset(seed=seed, options=options)[0])
         env.agent.reset(env.base_sim_env.agent.robot.qpos.cpu().numpy().reshape(-1))
 
-    tr.KERNEL.launches = 0
+    RasterLaunches(tr).launches = 0
     env = Sim2RealEnv(sim, LeRobotRealAgent(stub), real_reset_function=reset_fn)
     obs = None
     for i in range(n_resets):
@@ -4461,7 +4485,7 @@ def sim2real_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
         obs, rew, term, trunc, info = env.step(zero)
         gaps.append(float(np.abs(base.agent.robot.qpos[0].cpu().numpy() - stub_qpos()).max()))
     step_s = (time.perf_counter() - t1) / n_steps
-    launches = tr.KERNEL.launches
+    launches = RasterLaunches(tr).launches
     total_s = time.perf_counter() - t0
     check(launches == 2 + n_resets, f"sim2real: {launches} kernel launches, not one per sim reset ({2 + n_resets})")
     check(max(gaps) <= SIM2REAL_QPOS_TOL, f"sim2real: sim qpos off the stub's by {max(gaps):.2e}")
@@ -4488,15 +4512,15 @@ def sim2real_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
     # the last sim frame (the last reset's, before its sync) is held to the
     # plain version by rerendering its state: take the frame's inputs now
     inputs = camera_inputs(base, base._sensors["base_camera"], tuple(base._hidden_objects), tiled_inputs, geom_poses)
-    before = tr.KERNEL.launches
+    before = RasterLaunches(tr).launches
     zk, sk, rk, dk = tr.rasterize_tiles(*inputs, 128, 128)
     zp, sp, rp, dp = tr.rasterize_tiles_ref(*inputs, 128, 128)
-    tr.KERNEL.launches = before
+    RasterLaunches(tr).launches = before
     torch.cuda.synchronize()
     check(bool(torch.equal(zk.view(torch.int32), zp.view(torch.int32)) & torch.equal(sk, sp) & torch.equal(rk, rp))
           and int(dk) == 0, "sim2real: the kernel's frame differs from the plain version's")
     max_err = max(max_err, (zk - zp).abs().max().item())
-    times = kernel_times(tr.KERNEL, tr, inputs, 128, 128)
+    times = raster_times(tr, inputs, 128, 128)
     paths["sim2real_so100_1"] = dict(launches=launches, **times)
     env.close()
     print(f"sim2real {uid} x1 (rgb + state, LeRobotRealAgent over a stub follower): construction with the data "
@@ -4504,9 +4528,7 @@ def sim2real_phase(torch, dev, make, card, tr, tiled_inputs, geom_poses, paths):
           f"control_dt {env.control_dt:.4f} s; sim qpos within {max(gaps):.2e} of the robot's after every step; "
           f"_sync_sim_from_real: {prof['syncs']:.0f} syncs, {prof['h2d_copies']:.0f} host-to-device copies read "
           f"by the profiler (at most the real qpos's), {prof['launches']:.0f} launches, {prof['wall_ms']:.2f} ms; {launches} kernel launches (one per sim reset) {card}")
-    print(f"raster kernel (sim2real so100, 1x128x128): {times['ms']:.4f} ms/frame vs plain {times['plain_ms']:.3f} "
-          f"ms, bound {times['bound_ms']:.5f} ms ({times['bound_by']}, share {times['bound_ms'] / times['ms']:.4f}), "
-          f"bit-equal {card}")
+    print_raster_times("sim2real so100", "1x128x128", times, card)
     return max_err
 
 
@@ -4661,12 +4683,9 @@ def data_and_trainer_phases(torch, dev, make, card, tr, tiled_inputs, geom_poses
         stamp("phases 32-33 and 35-38 (" + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
               + " in their processes)")
         replay_kernel_times(tr, paths, inputs, launches, card)
-        dp_rgb = dict(launches=dp_rgb_launches, **kernel_times(tr.KERNEL, tr, [
-            x.to(dev) if isinstance(x, torch.Tensor) else x for x in dp_rgb_inputs], 128, 128))
-        paths[f"dp_rgb_eval_pickcube_{IL_EVAL_ENVS}"] = dp_rgb
-        print(f"raster kernel (dp rgb eval pickcube, {IL_EVAL_ENVS}x128x128, phase 36's last frame): "
-              f"{dp_rgb['ms']:.4f} ms/frame vs plain {dp_rgb['plain_ms']:.3f} ms, bound {dp_rgb['bound_ms']:.4f} ms "
-              f"({dp_rgb['bound_by']}) {card}")
+        times = raster_times(tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in dp_rgb_inputs], 128, 128)
+        paths[f"dp_rgb_eval_pickcube_{IL_EVAL_ENVS}"] = dict(launches=dp_rgb_launches, **times)
+        print_raster_times("dp rgb eval pickcube, phase 36's last frame", f"{IL_EVAL_ENVS}x128x128", times, card)
         rlpd_phase(torch, dev, make, card, converted)
     stamp("phase 34")
     return max_err
@@ -4707,12 +4726,13 @@ def main(device: str = "cuda"):
     dev = torch.device(device)
 
     # ---- phase 2: build -----------------------------------------------------
-    kernel = tr.KERNEL
-    kernel.build()
-    print(f"build: raster_tiles.cu -> sm_90a in {kernel.build_seconds:.2f} s {card}")
-    for line in kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    kernel = RasterLaunches(tr)
+    tr.build_kernels()  # one nvcc per source, side by side
+    for k in (tr.SETUP, tr.KERNEL):
+        print(f"build: {k.name}.cu -> sm_90a in {k.build_seconds:.2f} s {card}")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # ---- phase 3: kernel vs plain version -----------------------------------
     rng = np.random.default_rng(0)
@@ -4721,9 +4741,11 @@ def main(device: str = "cuda"):
         ("B64 F288 128x128", (64, 288, 128, 128, None)),
         ("B8 F5000 96x160", (8, 5000, 96, 160, None)),
         ("B4 F1500 32x128 overflow", (4, 1500, 32, 128, (2.0, 12.0))),
+        ("B1 F333 50x70 ragged", (1, 333, 50, 70, None)),
     ]
     for name, (B, F, H, W, rows) in cases:
         args = [torch.as_tensor(a, device=dev) for a in random_faces(rng, B, F, H, W, rows)]
+        raster_times(tr, args, H, W, reps=1)  # each kernel bit-equal to its plain version
         zk, sk, rk, dk = tr.rasterize_tiles(*args, H, W)
         zp, sp, rp, dp = tr.rasterize_tiles_ref(*args, H, W)
         torch.cuda.synchronize()
@@ -4737,7 +4759,8 @@ def main(device: str = "cuda"):
             check(int(counts.max()) > 1024 and int(dk) == 0,
                   f"{name}: the fullest band holds {int(counts.max())} faces, dropped {int(dk)}")
         max_err = max(max_err, (zk - zp).abs().max().item(), (rk - rp).abs().max().item())
-        print(f"kernel == plain on {name}: seg/rgb equal, depth bit-equal, dropped {int(dk)}, "
+        print(f"kernels == plain on {name}: raster_setup's table, lists and counts equal, raster_tiles' 1/z "
+              f"bit-equal; the frame's seg/rgb equal, depth bit-equal, dropped {int(dk)}, "
               f"fg {(sk >= 0).float().mean().item():.3f}"
               + (f", the fullest band's list {int(counts.max())} entries (walked whole)" if rows else ""))
 
@@ -4787,23 +4810,16 @@ def main(device: str = "cuda"):
     stamp("phase 4")
 
     # ---- phase 5: Cartpole timings ------------------------------------------
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    times = raster_times(tr, inputs, 128, 128, 50)
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 50)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 3)
     frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 20)
-    kernel.launches = before  # timing launches are not main-path launches
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"cartpole_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                      bound_by=bound_by)
+    kernel.launches = before
+    paths[f"cartpole_rgb_{n_envs}"] = dict(launches=launches, **times)
     print(f"cartpole rate: {n_envs * n_steps / step_s:.1f} env-steps/s "
           f"({step_s / n_steps * 1e3:.2f} ms/step, eager) {card}")
-    print(f"raster kernel (cartpole, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) {card}")
-    print(f"cartpole tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame {card}")
-    print(f"cartpole faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}")
-    del env, base, inputs, table, idx, counts
+    print_raster_times("cartpole", f"{n_envs}x128x128", times, card)
+    print(f"cartpole tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame {card}")
+    del env, base, inputs
 
     stamp("phase 5")
 
@@ -4893,26 +4909,19 @@ def main(device: str = "cuda"):
     check(int(base.scene.data.contact.overflow.max()) == 0, "pickcube rgb: contact overflow")
     inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, rgb, "pickcube rgb")
     max_err = max(max_err, err)
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
+    times = raster_times(tr, inputs, 128, 128, 20)
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
     frame_ms = cuda_ms(lambda: tr.rasterize_tiles(*inputs, 128, 128), 10)
     kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
-    paths[f"pickcube_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                      bound_by=bound_by)
+    paths[f"pickcube_rgb_{n_envs}"] = dict(launches=launches, **times)
     print(f"pickcube rgb: {n_steps} steps x {n_envs} envs, kernel launches {launches}, dropped 0, "
           f"seg agreement with plain (16 envs) {agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal")
     print(f"pickcube rgb rate: {n_envs * n_steps / step_s:.1f} env-steps/s "
           f"({step_s / n_steps * 1e3:.2f} ms/step, eager) {card}")
-    print(f"raster kernel (pickcube, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) {card}")
-    print(f"pickcube tiled render (vertex stage + binning + kernel): {frame_ms:.4f} ms/frame {card}")
-    print(f"pickcube faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, "
-          f"faces in the scene {inputs[0].shape[1]}")
-    del env, base, inputs, table, idx, counts, obs, rgb
+    print_raster_times("pickcube", f"{n_envs}x128x128", times, card)
+    print(f"pickcube tiled render (raster_setup + raster_tiles): {frame_ms:.4f} ms/frame {card}")
+    print(f"pickcube faces in the scene {inputs[0].shape[1]}")
+    del env, base, inputs, obs, rgb
 
     stamp("phase 8")
 
@@ -4951,24 +4960,15 @@ def main(device: str = "cuda"):
     inputs, err, agree = rerender_check(base, "base_camera", 16, tr, tiled_inputs, geom_poses, obs["rgb"],
                                         "pushcube ppo rgb")
     max_err = max(max_err, err)
-    table, valid = tr.face_records(*inputs)
-    idx, counts, _ = tr.bin_faces(inputs[0], inputs[1], valid, 128, 128)
-    before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(table, idx, counts, 128, 128), 20)
-    p_ms = cuda_ms(lambda: tr.raster_bands_ref(table, idx, counts, 128, 128), 1)
-    kernel.launches = before
-    bound_ms, bound_by = raster_bound_ms(table, counts, 128, 128)
+    times = raster_times(tr, inputs, 128, 128, 20)
     n_envs = PPO_RGB[1]
-    paths[f"pushcube_ppo_rgb_{n_envs}"] = dict(launches=launches, ms=k_ms, plain_ms=p_ms,
-                                              bound_ms=bound_ms, bound_by=bound_by)
+    paths[f"pushcube_ppo_rgb_{n_envs}"] = dict(launches=launches, **times)
     print(f"pushcube ppo rgb: last frame of 16 envs re-rendered through the plain version: seg agreement "
           f"{agree:.6f} (bound {SEG_AGREE_MIN}), rgb equal")
-    print(f"raster kernel (pushcube, {n_envs}x128x128): {k_ms:.4f} ms/frame vs plain {p_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) {card}")
-    print(f"pushcube faces per band: mean {counts.float().mean().item():.1f}, max {int(counts.max())}, "
-          f"faces in the scene {inputs[0].shape[1]}")
+    print_raster_times("pushcube", f"{n_envs}x128x128", times, card)
+    print(f"pushcube faces in the scene {inputs[0].shape[1]}")
     evaluate_checkpoint(torch, env, trainer, RGB_CKPT, RGB_SUCCESS_MIN, card)
-    del env, trainer, inputs, table, idx, counts, obs
+    del env, trainer, inputs, obs
 
     stamp("phases 12-13")
 
@@ -5071,37 +5071,43 @@ def main(device: str = "cuda"):
     finally:
         slice_pool.shutdown(wait=True, cancel_futures=True)
     stamp("phases 28 and 29 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in ppo_late_s.items()) + " in their process)")
-    rgbd = dict(launches=rgbd_launches, **kernel_times(tr.KERNEL, tr, [
-        x.to(dev) if isinstance(x, torch.Tensor) else x for x in rgbd_inputs], 128, 128))
-    paths[f"pushcube_ppo_rgbd_{PPO_RGBD[1]}"] = rgbd
-    print(f"raster kernel (pushcube rgbd, {PPO_RGBD[1]}x128x128, phase 29's last frame): {rgbd['ms']:.4f} ms/frame "
-          f"vs plain {rgbd['plain_ms']:.3f} ms, bound {rgbd['bound_ms']:.4f} ms ({rgbd['bound_by']}) {card}")
+    times = raster_times(tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in rgbd_inputs], 128, 128)
+    paths[f"pushcube_ppo_rgbd_{PPO_RGBD[1]}"] = dict(launches=rgbd_launches, **times)
+    print_raster_times("pushcube rgbd, phase 29's last frame", f"{PPO_RGBD[1]}x128x128", times, card)
     stamp("phases 54's viewer, 55's gpu_sim, 56 and 59 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in slice17_s.items())
           + " in their process)")
     for name, (launches, inputs, H, W) in slice17_paths.items():
-        times = kernel_times(tr.KERNEL, tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in inputs], H, W)
+        times = raster_times(tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in inputs], H, W)
         paths[name] = dict(launches=launches, **times)
-        print(f"raster kernel ({name}, the last frame at {H}x{W}): {times['ms']:.4f} ms/frame vs plain "
-              f"{times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}) {card}")
+        print_raster_times(f"{name}, the last frame", f"{H}x{W}", times, card)
     stamp("phases 46 and 48 (" + ", ".join(f"{k}: {v:.1f} s" for k, v in late_s.items()) + " in their process)")
     max_err = max(max_err, bridge_rgb_times(torch, dev, tr, paths, late_rgb, card))
     stamp("phase 48's kernel times")
 
     main_path = paths[f"pickcube_rgb_{PICKCUBE_RGB[1]}"]
-    print(json.dumps({"kernels": [{
-        "name": "raster_tiles",
-        "route": "cuda",
-        "source": "maniskill_tpu_torch/csrc/raster_tiles.cu",
-        "replaces": "maniskill_tpu/render/pallas_rasterizer.py:45",
-        "launches": sum(p["launches"] for p in paths.values()),
-        "max_abs_err": max_err,
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"],
-        "library_ms": None,
-        "paths": paths,
-    }]}))
+    kernels = []
+    for name, source, replaces, err in (
+        ("raster_setup", "maniskill_tpu_torch/csrc/raster_setup.cu", "maniskill_tpu/render/pallas_rasterizer.py:113",
+         max(p["raster_setup"]["max_abs_err"] for p in paths.values())),
+        ("raster_tiles", "maniskill_tpu_torch/csrc/raster_tiles.cu", "maniskill_tpu/render/pallas_rasterizer.py:45",
+         max_err),
+    ):
+        main = main_path[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(p["launches"] for p in paths.values()),
+            "max_abs_err": err,
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "paths": {k: dict(launches=p["launches"], **p[name]) for k, p in paths.items()},
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

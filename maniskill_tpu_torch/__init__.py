@@ -2,8 +2,9 @@
 
 It mirrors the JAX package's layout module by module (each module names its
 counterpart) and runs on torch tensors: the batched physics, the env, agent
-and controller layers, and camera sensors whose tiled rasterizer is a
-hand-written CUDA kernel (csrc/raster_tiles.cu) on the card. It imports no
+and controller layers, and camera sensors whose tiled rasterizer is two
+hand-written CUDA kernels (csrc/raster_setup.cu, csrc/raster_tiles.cu) on
+the card. It imports no
 JAX. ``import maniskill_tpu_torch.envs`` registers the ported tasks.
 """
 __version__ = "0.1.0"

@@ -3,7 +3,7 @@ maniskill_tpu/render/rasterizer.py).
 
 All (num_envs x num_cams) views render in one batched pass reading the body
 poses the physics step just wrote. Colour/depth/segmentation go through the
-tiled rasterizer (``tiled_rasterizer.rasterize_tiles``: the CUDA kernel on
+tiled rasterizer (``tiled_rasterizer.rasterize_tiles``: two CUDA kernels on
 the card); the normal/albedo extra textures go through the face-chunked
 coverage pass and ``_shade``.
 """

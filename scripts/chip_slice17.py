@@ -41,7 +41,7 @@ def main():
     card = f"[{smi}]"
     print(smi, torch.__version__, torch.version.cuda, flush=True)
     dev = torch.device("cuda")
-    tr.KERNEL.build()
+    tr.build_kernels()
     paths = {}
     t0 = time.perf_counter()
     env = make("PickCube-v1", num_envs=16, obs_mode="state", device=dev,
@@ -62,8 +62,7 @@ def main():
     seconds, kernel_paths = cs.slice17_worker(card)
     print(seconds, {k: v[0] for k, v in kernel_paths.items()})
     for name, (launches, inputs, H, W) in kernel_paths.items():
-        times = cs.kernel_times(tr.KERNEL, tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in inputs],
-                                H, W)
+        times = cs.raster_times(tr, [x.to(dev) if isinstance(x, torch.Tensor) else x for x in inputs], H, W)
         print(name, launches, times, card)
     for k, v in paths.items():
         print(k, v)

@@ -44,7 +44,7 @@ def main():
     card = f"[{smi}]"
     print(smi, torch.__version__, torch.version.cuda, flush=True)
     dev = torch.device("cuda")
-    tr.KERNEL.build()
+    tr.build_kernels()
     t0 = time.perf_counter()
     sim = FlattenRGBDObservationWrapper(make(cs.SIM2REAL[0], num_envs=1, obs_mode="rgb", device=dev), rgb=True,
                                         depth=False, state=True)

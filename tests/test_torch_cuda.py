@@ -75,6 +75,79 @@ def test_raster_kernel_walks_a_band_past_1024_faces(cuda):
     assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
 
 
+SETUP_CASES = [
+    # (B, F, H, W, band_rows): the raster tests' shapes, then one env, F not a
+    # multiple of 32, H not a multiple of 16, W not a multiple of the 32-column
+    # tile, and a band past 1,024 entries
+    (16, 288, 128, 128, None), (2, 3000, 40, 200, None), (2, 1500, 32, 128, (2.0, 12.0)),
+    (1, 1000, 64, 96, None), (3, 333, 50, 70, None), (2, 2500, 48, 100, (18.0, 30.0)),
+]
+SETUP_IDS = ["slice-like", "ragged", "band-overflow", "one-env", "odd-sizes", "band-past-1024"]
+
+
+def _plain_setup(tr, args, H, W):
+    table, valid = tr.face_records(*args)
+    idx, counts, _ = tr.bin_faces(args[0], args[1], valid, H, W)
+    return table, valid, idx, counts
+
+
+@pytest.mark.parametrize("B,F,H,W,band_rows", SETUP_CASES, ids=SETUP_IDS)
+def test_raster_setup_matches_plain(cuda, B, F, H, W, band_rows):
+    """raster_setup's table bits, validity, whole (B, T, F) id lists and
+    counts equal face_records' and bin_faces' (corners on pixel centres and
+    degenerate faces mixed in)."""
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+
+    rng = np.random.default_rng(F + H)
+    faces = list(_faces(rng, B, F, H, W, band_rows))
+    faces[0][:, ::7] = np.round(faces[0][:, ::7]) + 0.5
+    faces[1][:, ::11, 2] = faces[1][:, ::11, 0]  # some faces degenerate or slivers
+    faces[0][:, ::11, 2] = faces[0][:, ::11, 0]
+    args = [torch.as_tensor(a, device=cuda) for a in faces]
+    launches = tr.SETUP.launches
+    table, valid, idx, counts = tr.SETUP(*args, H, W)
+    assert tr.SETUP.launches == launches + 1
+    p_table, p_valid, p_idx, p_counts = _plain_setup(tr, args, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(table.view(torch.int32), p_table.view(torch.int32))
+    assert torch.equal(valid, p_valid)
+    assert torch.equal(idx, p_idx) and torch.equal(counts, p_counts)
+    if band_rows is not None:
+        assert int(counts.max()) > 1024
+
+
+@pytest.mark.parametrize("B,F,H,W,band_rows", SETUP_CASES, ids=SETUP_IDS)
+def test_raster_tiles_matches_plain(cuda, B, F, H, W, band_rows):
+    """raster_tiles on the plain table and lists: 1/z bits, seg and rgb equal
+    to raster_bands_ref's on every pixel."""
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+
+    args = [torch.as_tensor(a, device=cuda) for a in _faces(np.random.default_rng(F + W), B, F, H, W, band_rows)]
+    table, _, idx, counts = _plain_setup(tr, args, H, W)
+    launches = tr.KERNEL.launches
+    iz, seg, rgb = tr.KERNEL(table, idx, counts, H, W)
+    assert tr.KERNEL.launches == launches + 1
+    p_iz, p_seg, p_rgb = tr.raster_bands_ref(table, idx, counts, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(iz.view(torch.int32), p_iz.view(torch.int32))
+    assert torch.equal(seg, p_seg) and torch.equal(rgb, p_rgb)
+    assert (seg >= 0).float().mean() > 0.2
+
+
+def test_rasterize_tiles_launches_each_kernel_once_per_frame(cuda):
+    from maniskill_tpu_torch.render import tiled_rasterizer as tr
+
+    args = [torch.as_tensor(a, device=cuda) for a in _faces(np.random.default_rng(3), 4, 500, 64, 64)]
+    counts = (tr.SETUP.launches, tr.KERNEL.launches)
+    for _ in range(3):
+        tr.rasterize_tiles(*args, 64, 64)
+    assert (tr.SETUP.launches, tr.KERNEL.launches) == (counts[0] + 3, counts[1] + 3)
+    cpu = [a.cpu() for a in args]
+    with pytest.raises(ValueError, match="CUDA"):
+        tr.SETUP(*cpu, 64, 64)
+    assert tr.SETUP.launches == counts[0] + 3
+
+
 def test_slice_steps_through_the_kernel(cuda):
     import maniskill_tpu_torch.envs  # noqa: F401
     from maniskill_tpu_torch import make
