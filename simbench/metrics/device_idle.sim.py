@@ -1,0 +1,9 @@
+"""Share of the profiled stretch of env steps in which no kernel, copy or
+memset ran on the device (one less the union of their intervals over the
+stretch)."""
+
+
+def read(rec):
+    if rec.get("platform") != "gpu" or rec.get("driver") != "vector_env" or not rec.get("window_s"):
+        return None
+    return 1.0 - rec["busy_s"] / rec["window_s"]
